@@ -1,0 +1,55 @@
+"""The PyTorch port stands alone: every module of it, and chip_smoke.py,
+imports with jax, flax, optax and the JAX package blocked; and its config
+parsing matches the JAX package's on the repo's configs."""
+
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = "bevfusion_multimodal_3d_object_detection_tpu_torch"
+
+_BLOCKED_IMPORT = f"""
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "bevfusion_multimodal_3d_object_detection_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+sys.path.insert(0, {str(ROOT)!r})
+import {PORT} as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import importlib.util
+spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_smoke.py")!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT], capture_output=True, text=True,
+        timeout=120, cwd=str(ROOT),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15  # every module was imported
+
+
+@pytest.mark.parametrize("config", ["base.yaml", "bev100.yaml"])
+def test_config_parsing_matches_jax(config):
+    from bevfusion_multimodal_3d_object_detection_tpu import config as jax_config
+    from bevfusion_multimodal_3d_object_detection_tpu_torch import config as port_config
+
+    cfg = port_config.load_config(str(ROOT / "configs" / config))
+    for name in ("DetectorSpec", "CompatFlags"):
+        port = getattr(port_config, name).from_config(cfg)
+        ref = getattr(jax_config, name).from_config(cfg)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref), name
+    for section in ("val", ("inference", "test")):
+        assert dataclasses.asdict(
+            port_config.PostProcessSpec.from_config(cfg, section)
+        ) == dataclasses.asdict(jax_config.PostProcessSpec.from_config(cfg, section))
+    with pytest.raises(ValueError, match="unknown compat"):
+        port_config.CompatFlags.from_config({"compat": {"no_such_flag": True}})

@@ -1,0 +1,109 @@
+"""The PyTorch port's InferenceServer (on the CPU) against the JAX
+InferenceServer, both serving the same seeded weights in f32 with camera
+BatchNorm folded: a uint8 request, float requests and a partial batch give
+the same detections (scores 1e-4, boxes 1e-3 absolute)."""
+
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from bevfusion_multimodal_3d_object_detection_tpu.config import DetectorSpec, load_config
+from bevfusion_multimodal_3d_object_detection_tpu.models import MultiModal3DDetector
+from bevfusion_multimodal_3d_object_detection_tpu.serving import (
+    InferenceServer as JaxServer,
+)
+from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import (
+    InferenceServer,
+    ServerStoppedError,
+)
+from torch_port_helpers import detector_inputs, random_variables
+
+
+@pytest.fixture(scope="module")
+def narrow_config():
+    cfg = load_config(str(pathlib.Path(__file__).parents[1] / "configs" / "base.yaml"))
+    model = cfg["model"]
+    model["camera_encoder"]["input_size"] = [32, 64]
+    cfg["dataset"]["max_points"] = {"lidar": 256, "radar_per_sensor": 16}
+    model["lidar_encoder"]["mlp_layers"] = [16, 32, 64]
+    model["radar_encoder"].update(mlp_layers=[8, 16, 32], feature_dim=32)
+    model["bev_fusion"].update(bev_h=16, bev_w=16, bev_channels=32)
+    model["centernet_head"].update(in_channels=32, head_conv=16)
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def variables(narrow_config):
+    spec = DetectorSpec.from_config(narrow_config)
+    args = tuple(jnp.asarray(a[:1]) for a in detector_inputs(spec))
+    init = MultiModal3DDetector(spec=spec).init({"params": jax.random.PRNGKey(0)}, *args)
+    return random_variables(init, seed=11)
+
+
+def _samples(spec, n, seed):
+    cams, lidar, radar = detector_inputs(spec, batch=n, seed=seed)
+    return [
+        {"camera_imgs": cams[i], "lidar_points": lidar[i], "radar_points": radar[i]}
+        for i in range(n)
+    ]
+
+
+def _sorted(res):
+    order = np.lexsort((res["scores"], res["boxes"][:, 1], res["boxes"][:, 0]))
+    return {k: v[order] for k, v in res.items()}
+
+
+def test_server_matches_jax_server(narrow_config, variables):
+    kw = dict(config=narrow_config, batch_size=2, max_delay_ms=200.0, score_threshold=0.5,
+              use_bf16=False, fold_bn=True, variables=variables)
+    samples = _samples(DetectorSpec.from_config(narrow_config), 3, seed=5)
+    rng = np.random.RandomState(6)
+    samples[0]["camera_imgs"] = rng.randint(0, 256, (6, 32, 64, 3), np.uint8)
+    with JaxServer(**kw) as jax_server:
+        want = [jax_server.infer(s, timeout=300) for s in samples]
+    port = InferenceServer(device="cpu", **kw)
+    with port:
+        # three requests on batch 2: a coalesced batch (mixed wires) and a
+        # partial one
+        futures = [port.submit(s) for s in samples]
+        got = [f.result(timeout=300) for f in futures]
+    assert port.stats["requests"] == 3 and port.stats["padded_rows"] >= 1
+    n_dets = 0
+    for g, w in zip(got, want):
+        assert g["boxes"].shape[1] == 9
+        assert len(g["scores"]) == len(w["scores"])
+        g, w = _sorted(g), _sorted(w)
+        np.testing.assert_allclose(g["scores"], w["scores"], atol=1e-4)
+        np.testing.assert_allclose(g["boxes"], w["boxes"], atol=1e-3)
+        np.testing.assert_array_equal(g["labels"], w["labels"])
+        n_dets += len(g["scores"])
+    assert n_dets > 0  # the comparison saw detections
+
+
+def test_server_contract(narrow_config):
+    """Shape check at submit, cancelled futures skipped, and stop() failing
+    queued requests; a stopped server does not restart."""
+    server = InferenceServer(config=narrow_config, batch_size=2, max_delay_ms=1.0,
+                             use_bf16=True, device="cpu", score_threshold=0.0)
+    sample = _samples(server.spec, 1, seed=7)[0]
+    bad = dict(sample, camera_imgs=sample["camera_imgs"][:, :8])
+    with pytest.raises(ValueError, match="camera_imgs"):
+        server.submit(bad)
+    cancelled = server.submit(sample)
+    assert cancelled.cancel()
+    with server:
+        res = server.infer(sample, timeout=120)
+    assert res["boxes"].shape == (100, 9) and np.isfinite(res["boxes"]).all()
+    with pytest.raises(ServerStoppedError):
+        server.submit(sample)
+    with pytest.raises(ServerStoppedError, match="restarted"):
+        server.start(warmup=False)
+
+    idle = InferenceServer(config=narrow_config, batch_size=2, use_bf16=False, device="cpu")
+    fut = idle.submit(sample)  # never started: stays queued
+    idle.stop()
+    with pytest.raises(ServerStoppedError):
+        fut.result(timeout=5)
