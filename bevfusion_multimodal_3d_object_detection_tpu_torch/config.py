@@ -18,6 +18,16 @@ import yaml
 
 DEFAULT_PC_RANGE: Tuple[float, ...] = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
 
+# nuScenes camera order of every (N_cam, ...) stack
+CAMERA_ORDER: Tuple[str, ...] = (
+    "CAM_FRONT",
+    "CAM_FRONT_RIGHT",
+    "CAM_FRONT_LEFT",
+    "CAM_BACK",
+    "CAM_BACK_LEFT",
+    "CAM_BACK_RIGHT",
+)
+
 
 def load_config(config_path: str) -> Dict[str, Any]:
     """Load a YAML config file into a raw dict (same contract as the reference

@@ -7,6 +7,8 @@ JAX package's, so the two compare like with like:
   camera_imgs:  (B, N_cam, H, W, 3)
   lidar_points: (B, N, C)
   radar_points: (B, R, N_r, C_r)
+  camera_cells: (B, N_cam, D, H', W') int, camera_chunks: the per-camera
+                chunk plans (``camera_to_bev: geometric`` only)
 
 and the prediction maps come back NHWC. Inside, everything is NCHW.
 """
@@ -14,7 +16,7 @@ and the prediction maps come back NHWC. Inside, everything is NCHW.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -61,7 +63,9 @@ class MultiModal3DDetector(nn.Module):
 
     def forward(self, camera_imgs: Optional[torch.Tensor] = None,
                 lidar_points: Optional[torch.Tensor] = None,
-                radar_points: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                radar_points: Optional[torch.Tensor] = None,
+                camera_cells: Optional[torch.Tensor] = None,
+                camera_chunks: Optional[Tuple[torch.Tensor, ...]] = None) -> Dict[str, torch.Tensor]:
         s = self.spec
         cam = lidar = radar = None
         if s.use_camera:
@@ -71,7 +75,8 @@ class MultiModal3DDetector(nn.Module):
             lidar = self.lidar_encoder(lidar_points)
         if s.use_radar:
             radar = self.radar_encoder(radar_points)
-        preds = self.det_head(self.fusion(cam, lidar, radar))
+        fused = self.fusion(cam, lidar, radar, camera_cells=camera_cells, camera_chunks=camera_chunks)
+        preds = self.det_head(fused)
         return {k: v.permute(0, 2, 3, 1) for k, v in preds.items()}
 
     def init_weights(self, generator: torch.Generator) -> "MultiModal3DDetector":

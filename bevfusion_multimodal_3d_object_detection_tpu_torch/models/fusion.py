@@ -1,21 +1,31 @@
-"""Pseudo-BEV fusion (PyTorch, NCHW).
+"""BEV fusion (PyTorch, NCHW).
 
 Port of ``bevfusion_multimodal_3d_object_detection_tpu/models/fusion.py``
-``:34-55`` and ``:161-276`` in ``camera_to_bev: pseudo`` mode: each active
-modality is projected to a (bev_h, bev_w) grid, the grids are concatenated
-and fused by two conv-BN-ReLU layers. Submodule names follow the flax tree
-(``camera_proj1_conv``, ``camera_proj1_bn``, ``lidar_init1``...).
+``:34-276``: each active modality is projected to a (bev_h, bev_w) grid, the
+grids are concatenated and fused by two conv-BN-ReLU layers. The camera goes
+to the grid in one of two ways (`BEVFusionSpec.camera_to_bev`):
+
+- ``pseudo``: mean over cameras, conv-BN-ReLU twice, bilinear resize;
+- ``geometric``: `GeometricCameraBEV`, a lift-splat over depth bins into
+  the BEV cells each frustum point falls in (``:58-158``), with the splat
+  of ``splat_mode: matmul`` or, at inference with chunk plans,
+  ``splat_mode: pallas`` (kernel B2).
+
+Submodule names follow the flax tree (``camera_proj1_conv``,
+``geometric_camera_bev.depth_head``, ``lidar_init1``...).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..config import BEVFusionSpec
+from ..ops.bev_pool import num_cells_padded
+from ..ops.bev_splat import lift_splat_matmul_rows, lift_splat_pallas_rows
 from .resnet import batch_norm
 
 
@@ -33,11 +43,65 @@ def bilinear_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     ).to(x.dtype)
 
 
+class GeometricCameraBEV(nn.Module):
+    """Lift-splat camera-to-BEV: per camera a 1x1 depth head predicts a
+    distribution over D depth bins and a 1x1 projection gives the BEV
+    channels; the features weighted by the depth probabilities are summed
+    into the cells of their frustum points, summed over cameras, and refined
+    by conv-BN-ReLU.
+
+    camera_features (B, N, C_cam, H', W'); camera_cells (B, N, D, H', W')
+    int, -1 out of range; camera_chunks: the per-camera chunk plans
+    (point_idx, local_ids, block_idx) of `ops.bev_pool.precompute_bev_chunks`,
+    each (B, N, ...). Output (B, bev_channels, bev_h, bev_w)."""
+
+    def __init__(self, spec: BEVFusionSpec, camera_channels: int = 512):
+        super().__init__()
+        if spec.splat_mode not in ("matmul", "pallas"):
+            raise NotImplementedError(
+                f"splat_mode={spec.splat_mode!r} is not ported yet "
+                "(ROADMAP, still to port: the scatter and culled splats)"
+            )
+        self.spec = spec
+        c = spec.bev_channels
+        self.depth_head = nn.Conv2d(camera_channels, spec.depth_bins, 1)
+        self.feat_proj = nn.Conv2d(camera_channels, c, 1)
+        self.splat_refine_conv = nn.Conv2d(c, c, 3, 1, 1)
+        self.splat_refine_bn = batch_norm(c)
+
+    def forward(self, camera_features: torch.Tensor, camera_cells: Optional[torch.Tensor] = None,
+                camera_chunks: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+        s = self.spec
+        b, n = camera_features.shape[:2]
+        flat = camera_features.reshape((b * n,) + camera_features.shape[2:])
+        depth_logits = self.depth_head(flat)
+        feat = self.feat_proj(flat)
+        num_cells = s.bev_h * s.bev_w
+        if s.splat_mode == "pallas" and camera_chunks is not None and not self.training:
+            # kernel B2 (inference only, as in the JAX package); f32 out
+            pi, li, bi = (a.reshape((b * n,) + a.shape[2:]) for a in camera_chunks)
+            bev = lift_splat_pallas_rows(
+                feat, depth_logits, pi, li, bi, num_cells, num_cells_padded(num_cells)
+            ).to(feat.dtype)
+        else:
+            if camera_cells is None:
+                raise ValueError("the matmul splat needs camera_cells")
+            bev = lift_splat_matmul_rows(
+                feat, depth_logits, camera_cells.reshape(b * n, -1), num_cells
+            )
+        bev = bev.reshape(b, n, s.bev_h, s.bev_w, s.bev_channels).sum(dim=1)
+        bev = self.splat_refine_conv(bev.permute(0, 3, 1, 2))
+        return F.relu(self.splat_refine_bn(bev))
+
+
 class FlexibleBEVFusion(nn.Module):
     """Inputs (each may be None when its modality is off):
       camera_features: (B, N_cam, C_cam, H', W') or (B, C_cam, H', W')
+                       (5-D for camera_to_bev: geometric)
       lidar_features:  (B, C_lidar)
       radar_features:  (B, C_radar)
+      camera_cells, camera_chunks: the geometric path's frustum cells and
+                       chunk plans (see `GeometricCameraBEV`)
     Output: (B, bev_channels, bev_h, bev_w)."""
 
     def __init__(self, spec: BEVFusionSpec = BEVFusionSpec(),
@@ -45,15 +109,14 @@ class FlexibleBEVFusion(nn.Module):
                  use_radar: bool = True, camera_channels: int = 512,
                  lidar_channels: int = 1024, radar_channels: int = 256):
         super().__init__()
-        if spec.camera_to_bev != "pseudo":
-            raise NotImplementedError(
-                f"camera_to_bev={spec.camera_to_bev!r} is not ported yet "
-                "(ROADMAP queue A: geometric camera-to-BEV)"
-            )
+        if spec.camera_to_bev not in ("pseudo", "geometric"):
+            raise ValueError(f"unknown camera_to_bev {spec.camera_to_bev!r}")
         self.spec = spec
         self.use_camera, self.use_lidar, self.use_radar = use_camera, use_lidar, use_radar
         c = spec.bev_channels
-        if use_camera:
+        if use_camera and spec.camera_to_bev == "geometric":
+            self.geometric_camera_bev = GeometricCameraBEV(spec, camera_channels)
+        elif use_camera:
             self._add_conv_bn("camera_proj1", camera_channels, 512, 3)
             self._add_conv_bn("camera_proj2", 512, c, 1)
         if use_lidar:
@@ -82,7 +145,9 @@ class FlexibleBEVFusion(nn.Module):
 
     def forward(self, camera_features: Optional[torch.Tensor] = None,
                 lidar_features: Optional[torch.Tensor] = None,
-                radar_features: Optional[torch.Tensor] = None) -> torch.Tensor:
+                radar_features: Optional[torch.Tensor] = None,
+                camera_cells: Optional[torch.Tensor] = None,
+                camera_chunks: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
         s = self.spec
         bev_feats = []
         for used, feats, name in (
@@ -93,7 +158,11 @@ class FlexibleBEVFusion(nn.Module):
             if used and feats is None:
                 raise ValueError(f"{name} is enabled but no {name} features were given")
 
-        if self.use_camera:
+        if self.use_camera and s.camera_to_bev == "geometric":
+            if camera_features.ndim != 5:
+                raise ValueError("geometric camera-to-BEV needs (B, N_cam, C, H', W') features")
+            bev_feats.append(self.geometric_camera_bev(camera_features, camera_cells, camera_chunks))
+        elif self.use_camera:
             cam = camera_features
             if cam.ndim == 5:  # mean over cameras (ref: fusion.py:233-236)
                 cam = cam.mean(dim=1)

@@ -3,7 +3,8 @@
 Port of the TPU kernel `fused_pointnet`
 (``bevfusion_multimodal_3d_object_detection_tpu/ops/pointnet_pallas.py:71-183``)
 as hand-written CUDA C++ for Hopper (``csrc/pointnet_fused.cu``), built with
-``nvcc`` for ``sm_90a`` at first use and loaded through ``ctypes``.
+``nvcc`` for ``sm_90a`` at first use and loaded through ``ctypes``
+(``ops/_build.py``).
 
 - `pointnet_fused_reference`: the plain PyTorch version of the same function,
   including the rounding to the working dtype between layers. The CPU path
@@ -20,72 +21,29 @@ a multiple of its block with zero rows, which join the max when
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
+
+from . import _build
 
 _NEG = -1e30  # masked-row sentinel, as in the TPU kernel
 MAX_LAYERS = 8
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pointnet_fused.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_LIB_PATH = BUILD_DIR / "libpointnet_fused.so"
 
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(cuda_home) / "bin" / "nvcc")
-
-
-def build_library() -> Path:
-    """Compile ``csrc/pointnet_fused.cu`` into ``build/kernels/`` (skipped
-    when the library is newer than the source)."""
-    if _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= _SOURCE.stat().st_mtime:
-        return _LIB_PATH
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-o", str(_LIB_PATH), str(_SOURCE),
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.pointnet_fused_tile_points.argtypes = [ctypes.c_int]
+    lib.pointnet_fused_tile_points.restype = ctypes.c_int
+    lib.pointnet_fused_forward.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    return _LIB_PATH
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            lib.pointnet_fused_tile_points.argtypes = [ctypes.c_int]
-            lib.pointnet_fused_tile_points.restype = ctypes.c_int
-            lib.pointnet_fused_forward.argtypes = [
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_void_p),
-                ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            lib.pointnet_fused_forward.restype = ctypes.c_int
-            lib.pointnet_fused_error_string.argtypes = [ctypes.c_int]
-            lib.pointnet_fused_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    lib.pointnet_fused_forward.restype = ctypes.c_int
+    lib.pointnet_fused_error_string.argtypes = [ctypes.c_int]
+    lib.pointnet_fused_error_string.restype = ctypes.c_char_p
 
 
 def pointnet_fused_reference(
@@ -162,7 +120,7 @@ def pointnet_fused(
         if w.data_ptr() % 32:
             raise ValueError("pointnet_fused needs 32-byte aligned weights")
 
-    lib = _library()
+    lib = _build.load("pointnet_fused", _declare)
     is_bf16 = int(points.dtype == torch.bfloat16)
     b, n, c_in = points.shape
     tile = lib.pointnet_fused_tile_points(is_bf16)
