@@ -6,11 +6,11 @@
 // Same function: (B, N, C_in) points -> (B, feat) f32. Every layer is
 // Dense + ReLU with inference BatchNorm already folded into the weights,
 // accumulated in f32 with an f32 bias and cast to the working type (bf16 or
-// f32) before the next layer. The max runs over exactly the N points given:
-// rows this kernel adds for its own tiling never take part (the TPU wrapper
-// pads N with zero rows that do, when mask_padding is off). With
-// mask_padding, all-zero input rows are excluded and a row whose points are
-// all masked gives 0.
+// f32) before the next layer; the last layer too, before the max. The max
+// runs over exactly the N points given: rows this kernel adds for its own
+// tiling never take part (the TPU wrapper pads N with zero rows that do, when
+// mask_padding is off). With mask_padding, all-zero input rows are excluded
+// and a row whose points are all masked gives 0.
 //
 // Bound on an H100: at the LiDAR shape (35,000 points, 4->64->128->256->
 // 512->1024) the chain is ~48.8 GFLOP per sample against ~0.3 MB of input,
@@ -18,37 +18,73 @@
 // 989 TFLOP/s dense). The radar shape (125 points, 7->32->64->128->256) is
 // ~54 MFLOP per sample and bound by launch latency.
 //
-// Design (simple first):
-// - grid (tiles of P points, batch rows); one CTA pushes its tile through
-//   every layer with the activations in shared memory as ping-pong buffers
-//   in the working type, so no intermediate ever reaches device memory;
-// - weights are read from global memory (1.4 MB in bf16 for LiDAR, which
-//   stays resident in the 50 MB L2);
-// - bf16 layers whose widths are multiples of 16 run on the tensor cores
-//   (WMMA 16x16x16, f32 accumulate, through an f32 staging tile for the
-//   epilogue); the thin first layer (C_in = 4 or 7) and every f32 layer run
-//   as f32 FMA loops, so the f32 path is exact f32 (no TF32);
+// Design:
+// - grid (tiles of P points, batch rows); one CTA of 8 warps pushes its tile
+//   through every layer with the activations in shared memory in the working
+//   type, so no intermediate ever reaches device memory. Two buffers: A holds
+//   the input and the outputs of layers 2, 4, ..., B those of layers 1, 3,
+//   ...; each is sized at launch by the widest layer it holds;
+// - bf16 layers whose widths are multiples of 16 run on the tensor cores:
+//   mma.sync m16n8k16 (bf16 in, f32 accumulate), A fragments by ldmatrix from
+//   the activation buffer, B fragments by ldmatrix.trans from weight slabs
+//   that cp.async brings into shared memory. 8 warps as 2 (rows) x 4
+//   (columns), each a 64x32 block of a 128x128 output slab. The two row warps
+//   on the same 32 columns form a pair with its own ring of kStages slabs
+//   (kSlabK rows of K x its 32 columns of N), synchronised by a 64-thread
+//   named barrier: a pair's slabs of every tensor-core layer form one stream,
+//   so its next slab, N-slab or layer is in flight while its MMAs run, and
+//   the pairs never wait on each other inside a layer (one block-wide
+//   barrier per slab made all 8 warps drain and refill in step). The
+//   epilogue (bias, ReLU, round to bf16) runs in registers and stores
+//   straight into the next activation buffer;
+// - the thin first layer (C_in = 4 or 7), any layer whose width is not a
+//   multiple of 16, and every f32 layer run as f32 FMA loops, so the f32 path
+//   is exact f32 (no TF32);
 // - the last layer's output is never stored: each column is max-reduced over
-//   the tile into a (B, tiles, feat) f32 partial buffer, and a second small
-//   kernel reduces over tiles (deterministic, no float atomics) and maps the
-//   all-masked sentinel to 0.
+//   the tile (in registers, then across lanes by shuffles, then across the
+//   pair's two row warps in shared memory) into a (B, tiles, feat) f32 partial
+//   buffer, and a second small kernel reduces over tiles (deterministic, no
+//   float atomics) and maps the all-masked sentinel to 0.
+//
+// What this design replaced, and why: the first design (64-point tiles,
+// WMMA 16x16x16 with every B fragment loaded straight from L2, the epilogue
+// through an f32 staging tile, the last layer's column max a 64-row serial
+// loop per thread, ~168 KB of shared memory for one CTA per SM) took
+// 8.117 ms for the LiDAR batch in bf16 on an H100 80GB HBM3 at 700 W,
+// 48 TFLOP/s: 4,376 CTAs each read the 1.39 MB weight chain from L2
+// (~6.1 GB) with no load in flight ahead of the MMAs that needed it, so L2
+// latency set the pace. The 128-point tile halves the weight traffic (2,192
+// CTAs, ~3.05 GB) and the cp.async rings keep the next slabs in flight: this
+// design takes ~2.0 ms on the same card (~195 TFLOP/s; radar 40x125x7 ~0.023
+// ms of device time against 0.031). Taking the weight loads out saves ~20 %
+// and taking the MMAs out ~50 %, while a shallower ring changes nothing: the
+// pace is now set by the mma.sync issue and its ldmatrix operand traffic
+// (192 B of shared memory per MMA) with 2 warps per scheduler, not by L2.
+// Numbers: PERF.md (chip_smoke.py phase 5; tools/b1_ablation.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
-#include <type_traits>
 
 namespace {
 
 constexpr int kMaxLayers = 8;
 constexpr int kThreads = 256;
 constexpr float kNeg = -1e30f;  // masked-row sentinel (pointnet_pallas._NEG)
-constexpr int kStageCols = 128;
-constexpr int kStageLd = kStageCols + 4;
-constexpr int kColLanes = 64;  // FMA path: columns per pass
+constexpr int kColLanes = 64;   // FMA path: columns per pass
 constexpr int kRowGroups = kThreads / kColLanes;
 constexpr int kMaxSmem = 232448;  // 227 KB, the most one block may use
+// tensor-core path (bf16): 4 warp pairs, each two row warps on 32 columns
+constexpr int kPairs = 4;
+constexpr int kPairThreads = kThreads / kPairs;
+constexpr int kPairCols = 32;                 // columns of W per pair slab
+constexpr int kSlabN = kPairs * kPairCols;    // output columns per N-slab
+constexpr int kSlabK = 32;                    // rows of W per slab: two k16 steps
+constexpr int kStages = 3;                    // depth of each pair's cp.async ring
+constexpr int kSlabElems = kSlabK * kPairCols;  // 2 KB, rows of 4 swizzled 16-byte chunks
+// scratch: the FMA path's per-group column maxima, or each pair's maxima of
+// its two row warps
+constexpr int kScratch = kRowGroups * kColLanes;
+static_assert(kScratch == kPairs * 2 * kPairCols, "one scratch region serves both paths");
 
 struct Params {
   const void* points;
@@ -59,7 +95,8 @@ struct Params {
   const float* b[kMaxLayers];
   int mask_padding;
   int tiles;
-  int stride;      // activation row stride in elements
+  int stride_a;    // row stride (elements) of buffer A: input, layers 2, 4, ...
+  int stride_b;    // of buffer B: layers 1, 3, ...
   float* partial;  // (batch, tiles, feat)
 };
 
@@ -84,26 +121,33 @@ template <>
 struct Tile<float> {
   static constexpr int kPoints = 32;
   static constexpr int kPad = 4;
-  static constexpr bool kWmma = false;
+  static constexpr bool kMma = false;
 };
 template <>
 struct Tile<__nv_bfloat16> {
-  static constexpr int kPoints = 64;  // the WMMA warp layout assumes 64
+  static constexpr int kPoints = 128;  // the warp layout (2 x 64 rows) assumes 128
   static constexpr int kPad = 8;
-  static constexpr bool kWmma = true;
+  static constexpr bool kMma = true;
 };
+
+// Buffer row stride for the widest layer it holds: padded by one 16-byte
+// chunk, so 8 consecutive rows start in distinct bank groups.
+template <typename T>
+int padded_stride(int width) {
+  constexpr int pad = Tile<T>::kPad;
+  return width > 0 ? (width + pad - 1) / pad * pad + pad : 0;
+}
 
 // One layer as f32 FMA loops. Thread t owns column j0 + t % 64 and rows
 // (t / 64) * R .. + R of the tile.
 template <typename T, int P>
-__device__ void fma_layer(const T* in, T* out, int stride, int K, int N,
-                          const T* W, const float* B, bool last,
-                          const unsigned char* valid, float* colred,
-                          float* part) {
+__device__ void fma_layer(const T* in, int in_stride, T* out, int out_stride, int K,
+                          int N, const T* W, const float* B, bool last,
+                          const unsigned char* valid, float* colred, float* part) {
   constexpr int R = P / kRowGroups;
   const int lc = threadIdx.x % kColLanes;
   const int grp = threadIdx.x / kColLanes;
-  const T* a = in + grp * R * stride;
+  const T* a = in + grp * R * in_stride;
   for (int j0 = 0; j0 < N; j0 += kColLanes) {
     const int j = j0 + lc;
     float acc[R];
@@ -113,7 +157,7 @@ __device__ void fma_layer(const T* in, T* out, int stride, int K, int N,
       for (int k = 0; k < K; ++k) {
         const float w = to_f(W[static_cast<size_t>(k) * N + j]);
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(to_f(a[r * stride + k]), w, acc[r]);
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(to_f(a[r * in_stride + k]), w, acc[r]);
       }
     }
     const float bias = j < N ? B[j] : 0.f;
@@ -121,7 +165,7 @@ __device__ void fma_layer(const T* in, T* out, int stride, int K, int N,
       if (j < N) {
 #pragma unroll
         for (int r = 0; r < R; ++r)
-          out[(grp * R + r) * stride + j] = from_f<T>(fmaxf(acc[r] + bias, 0.f));
+          out[(grp * R + r) * out_stride + j] = from_f<T>(fmaxf(acc[r] + bias, 0.f));
       }
     } else {
       float m = kNeg;
@@ -142,88 +186,254 @@ __device__ void fma_layer(const T* in, T* out, int stride, int K, int N,
   }
 }
 
-// One bf16 layer on the tensor cores. The 64-row tile times a 128-column
-// slab of W is split over 8 warps as 2 (rows) x 4 (columns) blocks of 32x32,
-// each 2x2 WMMA fragments. A comes from shared memory, B straight from
-// global memory (L2-resident weights).
-__device__ void wmma_layer(const __nv_bfloat16* in, __nv_bfloat16* out,
-                           int stride, int K, int N, const __nv_bfloat16* W,
-                           const float* B, bool last,
-                           const unsigned char* valid, float* stage,
-                           float* part) {
-  using namespace nvcuda;
-  constexpr int P = Tile<__nv_bfloat16>::kPoints;
+// ---- tensor-core path (bf16) ----------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8, and receives row l / 4, columns 2 (l % 4) + {0, 1} of each.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The same, transposed: lane l receives rows 2 (l % 4) + {0, 1}, column l / 4.
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ bool on_tensor_cores(const Params& p, int l) {
+  return p.width[l] % 16 == 0 && p.width[l + 1] % 16 == 0;
+}
+
+// Synchronise the 64 threads of warp pair `pair` (barrier 0 is __syncthreads).
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(pair + 1), "n"(kPairThreads) : "memory");
+}
+
+// The weight stream of one warp pair: its 32 columns of every N-slab of every
+// tensor-core layer, in the order the layers consume them (layer, then
+// N-slab, then k-slab); N-slabs and layers where the pair has no column are
+// skipped. The producer runs kStages - 1 slabs ahead of the consumer; slab i
+// lives in slot i % kStages of the pair's own ring, so the pairs never wait
+// on each other inside a layer.
+struct Ring {
+  __nv_bfloat16* slots;  // this pair's kStages slots
+  int pair;
+  int layer, n0, k0;  // the producer's next slab (layer == num_layers: none)
+  int produced, consumed;
+};
+
+// The first layer at or after l that runs on the tensor cores and gives
+// this pair at least one column.
+__device__ __forceinline__ int next_pair_layer(const Params& p, int pair, int l) {
+  while (l < p.num_layers && !(on_tensor_cores(p, l) && pair * kPairCols < p.width[l + 1])) ++l;
+  return l;
+}
+
+// Element (row, col) of a slot: 32 columns as four 16-byte chunks, chunk
+// index XOR-swizzled by row / 2, so the 8 rows of an ldmatrix phase hit 8
+// distinct bank groups without padding.
+__device__ __forceinline__ int slot_index(int row, int chunk) {
+  return row * kPairCols + ((chunk ^ ((row >> 1) & 3)) << 3);
+}
+
+// Issue the pair's next slab (if any) and commit one cp.async group (empty
+// when the stream is done, so every step commits exactly one).
+__device__ __forceinline__ void produce(const Params& p, Ring& r) {
+  if (r.layer < p.num_layers) {
+    const int K = p.width[r.layer], N = p.width[r.layer + 1];
+    const int c0 = r.n0 + r.pair * kPairCols;          // the pair's first column
+    const int rows = min(kSlabK, K - r.k0);
+    const int chunks = min(kPairCols, N - c0) / 8;     // 16-byte chunks per row
+    const auto* W = static_cast<const __nv_bfloat16*>(p.w[r.layer]);
+    __nv_bfloat16* dst = r.slots + (r.produced % kStages) * kSlabElems;
+    const int t = threadIdx.x % kPairThreads;
+#pragma unroll
+    for (int i = 0; i < kSlabK * (kPairCols / 8) / kPairThreads; ++i) {
+      const int e = t + i * kPairThreads;
+      const int row = e / (kPairCols / 8), c = e % (kPairCols / 8);
+      if (row < rows && c < chunks)
+        cp_async16(dst + slot_index(row, c), W + static_cast<size_t>(r.k0 + row) * N + c0 + c * 8);
+    }
+    ++r.produced;
+    r.k0 += kSlabK;
+    if (r.k0 >= K) {
+      r.k0 = 0;
+      r.n0 += kSlabN;
+      if (r.n0 + r.pair * kPairCols >= N) {
+        r.n0 = 0;
+        r.layer = next_pair_layer(p, r.pair, r.layer + 1);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// One bf16 layer on the tensor cores, over the pair's slabs from its ring.
+// Warp w (pair w / 2) computes rows 64 (w % 2) .. + 64 and columns
+// n0 + 32 (w / 2) .. + 32 of each N-slab.
+__device__ __forceinline__ void mma_layer(const Params& p, Ring& ring, const __nv_bfloat16* in,
+                                          int in_stride, __nv_bfloat16* out, int out_stride,
+                                          int K, int N, const float* B, bool last,
+                                          const unsigned char* valid, float* scratch,
+                                          float* part) {
+  const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  const int r0 = (warp % 2) * 32;
-  for (int n0 = 0; n0 < N; n0 += kStageCols) {
-    const int c0 = n0 + (warp / 2) * 32;
-    const bool col_ok[2] = {c0 < N, c0 + 16 < N};
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  const int rw = warp % 2;
+  const int r0 = rw * 64;
+  const int pair = ring.pair;
+  const int cw = pair * kPairCols;
+  const int g = lane / 4, t2 = (lane % 4) * 2;  // accumulator row and column pair
+  // ldmatrix row addresses: A rows r0 + lane % 16, k + 8 (lane / 16); B
+  // (slot) rows lane % 16, chunk 2 jp + lane / 16
+  const __nv_bfloat16* a_base = in + (r0 + lane % 16) * in_stride + (lane / 16) * 8;
+  const int b_off[2] = {slot_index(lane % 16, lane / 16), slot_index(lane % 16, 2 + lane / 16)};
+  float* pair_max = scratch + pair * 2 * kPairCols;  // (2 row warps, 32 columns)
+
+  for (int n0 = 0; n0 < N; n0 += kSlabN) {
+    const int cols = min(kPairCols, N - n0 - cw);  // the pair's columns here: 16 or 32
+    if (cols <= 0) continue;                       // not in the pair's stream either
+    const int pairs = cols / 16;                   // 16-column pairs (1 or 2)
+    float acc[4][4][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) wmma::fill_fragment(acc[i][jj], 0.f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::load_matrix_sync(a[0], in + r0 * stride + k0, stride);
-      wmma::load_matrix_sync(a[1], in + (r0 + 16) * stride + k0, stride);
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        if (!col_ok[jj]) continue;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, W + static_cast<size_t>(k0) * N + c0 + 16 * jj, N);
-        wmma::mma_sync(acc[0][jj], a[0], bf, acc[0][jj]);
-        wmma::mma_sync(acc[1][jj], a[1], bf, acc[1][jj]);
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+    for (int k0 = 0; k0 < K; k0 += kSlabK) {
+      cp_async_wait<kStages - 2>();  // this thread's copies of the slab landed
+      pair_sync(pair);  // the pair's did; and the slot refilled next is free
+      const __nv_bfloat16* slab = ring.slots + (ring.consumed % kStages) * kSlabElems;
+      ++ring.consumed;
+      produce(p, ring);
+#pragma unroll
+      for (int kk = 0; kk < kSlabK / 16; ++kk) {
+        if (k0 + 16 * kk >= K) break;
+        unsigned a[4][4], b[2][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ldsm_x4(a[i], a_base + 16 * i * in_stride + k0 + 16 * kk);
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp)
+          if (jp < pairs) ldsm_x4_trans(b[jp], slab + b_off[jp] + 16 * kk * kPairCols);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j / 2 >= pairs) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            mma_bf16(acc[i][j], a[i], b[j / 2][(j % 2) * 2], b[j / 2][(j % 2) * 2 + 1]);
+        }
       }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-        if (col_ok[jj])
-          wmma::store_matrix_sync(stage + (r0 + 16 * i) * kStageLd + (c0 - n0) + 16 * jj,
-                                  acc[i][jj], kStageLd, wmma::mem_row_major);
-    __syncthreads();
-    const int width = min(kStageCols, N - n0);
+
     if (!last) {
-      for (int e = threadIdx.x; e < P * width; e += kThreads) {
-        const int r = e / width;
-        const int c = e - r * width;
-        out[r * stride + n0 + c] =
-            __float2bfloat16(fmaxf(stage[r * kStageLd + c] + B[n0 + c], 0.f));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j / 2 >= pairs) continue;
+        const int col = n0 + cw + 8 * j + t2;
+        const float b0 = B[col], b1 = B[col + 1];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = r0 + 16 * i + 8 * h + g;
+            *reinterpret_cast<__nv_bfloat162*>(out + row * out_stride + col) =
+                __floats2bfloat162_rn(fmaxf(acc[i][j][2 * h] + b0, 0.f),
+                                      fmaxf(acc[i][j][2 * h + 1] + b1, 0.f));
+          }
       }
-    } else if (threadIdx.x < width) {
-      const int c = threadIdx.x;
-      const float bias = B[n0 + c];
-      float m = kNeg;
-      for (int r = 0; r < P; ++r) {
-        if (valid[r])
-          m = fmaxf(m, __bfloat162float(__float2bfloat16(
-                           fmaxf(stage[r * kStageLd + c] + bias, 0.f))));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float m0 = kNeg, m1 = kNeg;
+        if (j / 2 < pairs) {
+          const int col = n0 + cw + 8 * j + t2;
+          const float b0 = B[col], b1 = B[col + 1];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (!valid[r0 + 16 * i + 8 * h + g]) continue;
+              m0 = fmaxf(m0, __bfloat162float(__float2bfloat16(fmaxf(acc[i][j][2 * h] + b0, 0.f))));
+              m1 = fmaxf(m1, __bfloat162float(__float2bfloat16(fmaxf(acc[i][j][2 * h + 1] + b1, 0.f))));
+            }
+        }
+        // over the 8 lanes that share these columns (lane % 4)
+#pragma unroll
+        for (int off = 4; off < 32; off *= 2) {
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+        }
+        if (g == 0 && j / 2 < pairs) {
+          pair_max[rw * kPairCols + 8 * j + t2] = m0;
+          pair_max[rw * kPairCols + 8 * j + t2 + 1] = m1;
+        }
       }
-      part[n0 + c] = m;
+      pair_sync(pair);
+      // pair_max is next written after the pair's next slab barrier
+      if (rw == 0 && lane < cols)
+        part[n0 + cw + lane] = fmaxf(pair_max[lane], pair_max[kPairCols + lane]);
     }
-    __syncthreads();
   }
 }
 
 template <typename T>
-constexpr size_t smem_bytes(int stride) {
-  return 2 * static_cast<size_t>(Tile<T>::kPoints) * stride * sizeof(T) +
-         (Tile<T>::kWmma ? static_cast<size_t>(Tile<T>::kPoints) * kStageLd * sizeof(float) : 0) +
-         kRowGroups * kColLanes * sizeof(float) + Tile<T>::kPoints;
+size_t smem_bytes(int stride_a, int stride_b) {
+  constexpr int P = Tile<T>::kPoints;
+  return static_cast<size_t>(P) * (stride_a + stride_b) * sizeof(T) +
+         (Tile<T>::kMma ? static_cast<size_t>(kPairs) * kStages * kSlabElems * sizeof(__nv_bfloat16)
+                        : 0) +
+         kScratch * sizeof(float) + P;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) pointnet_tile_kernel(Params prm) {
+__global__ void __launch_bounds__(kThreads) pointnet_tile_kernel(const __grid_constant__ Params prm) {
   constexpr int P = Tile<T>::kPoints;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int stride = prm.stride;
-  T* buf0 = reinterpret_cast<T*>(smem);
-  T* buf1 = buf0 + P * stride;
-  float* stage = reinterpret_cast<float*>(buf1 + P * stride);
-  float* colred = stage + (Tile<T>::kWmma ? P * kStageLd : 0);
-  unsigned char* valid = reinterpret_cast<unsigned char*>(colred + kRowGroups * kColLanes);
+  T* buf_a = reinterpret_cast<T*>(smem);
+  T* buf_b = buf_a + P * prm.stride_a;
+  auto* slots = reinterpret_cast<__nv_bfloat16*>(buf_b + P * prm.stride_b);
+  float* scratch =
+      reinterpret_cast<float*>(slots + (Tile<T>::kMma ? kPairs * kStages * kSlabElems : 0));
+  unsigned char* valid = reinterpret_cast<unsigned char*>(scratch + kScratch);
+
+  // each pair's first weight slabs go in flight before the points arrive
+  const int pair = threadIdx.x / kPairThreads;
+  Ring ring{slots + pair * kStages * kSlabElems, pair, prm.num_layers, 0, 0, 0, 0};
+  if constexpr (Tile<T>::kMma) {
+    ring.layer = next_pair_layer(prm, pair, 0);
+    for (int s = 0; s < kStages - 1; ++s) produce(prm, ring);
+  }
 
   const int tile = blockIdx.x;
   const int row = blockIdx.y;
@@ -232,9 +442,10 @@ __global__ void __launch_bounds__(kThreads) pointnet_tile_kernel(Params prm) {
   const int n_here = min(P, prm.n - p0);
   const T* pts = static_cast<const T*>(prm.points) +
                  (static_cast<size_t>(row) * prm.n + p0) * c_in;
+  // rows past N are zero: the tensor cores read them (they never join the max)
   for (int e = threadIdx.x; e < P * c_in; e += kThreads) {
     const int p = e / c_in;
-    buf0[p * stride + (e - p * c_in)] = p < n_here ? pts[e] : from_f<T>(0.f);
+    buf_a[p * prm.stride_a + (e - p * c_in)] = p < n_here ? pts[e] : from_f<T>(0.f);
   }
   __syncthreads();
   if (threadIdx.x < P) {
@@ -242,7 +453,7 @@ __global__ void __launch_bounds__(kThreads) pointnet_tile_kernel(Params prm) {
     bool v = p < n_here;
     if (v && prm.mask_padding) {
       bool any = false;
-      for (int c = 0; c < c_in; ++c) any |= to_f(buf0[p * stride + c]) != 0.f;
+      for (int c = 0; c < c_in; ++c) any |= to_f(buf_a[p * prm.stride_a + c]) != 0.f;
       v = any;
     }
     valid[p] = v;
@@ -251,26 +462,29 @@ __global__ void __launch_bounds__(kThreads) pointnet_tile_kernel(Params prm) {
 
   const int feat = prm.width[prm.num_layers];
   float* part = prm.partial + (static_cast<size_t>(row) * prm.tiles + tile) * feat;
-  T* in = buf0;
-  T* out = buf1;
   for (int l = 0; l < prm.num_layers; ++l) {
+    const bool even = l % 2 == 0;  // even layers read A and write B
+    const T* in = even ? buf_a : buf_b;
+    T* out = even ? buf_b : buf_a;
+    const int in_stride = even ? prm.stride_a : prm.stride_b;
+    const int out_stride = even ? prm.stride_b : prm.stride_a;
     const int K = prm.width[l];
     const int N = prm.width[l + 1];
     const bool last = l == prm.num_layers - 1;
     const T* W = static_cast<const T*>(prm.w[l]);
-    if constexpr (Tile<T>::kWmma) {
-      if (K % 16 == 0 && N % 16 == 0) {
-        wmma_layer(in, out, stride, K, N, W, prm.b[l], last, valid, stage, part);
+    if constexpr (Tile<T>::kMma) {
+      if (on_tensor_cores(prm, l)) {
+        mma_layer(prm, ring, in, in_stride, out, out_stride, K, N, prm.b[l], last, valid,
+                  scratch, part);
       } else {
-        fma_layer<T, P>(in, out, stride, K, N, W, prm.b[l], last, valid, colred, part);
+        fma_layer<T, P>(in, in_stride, out, out_stride, K, N, W, prm.b[l], last, valid,
+                        scratch, part);
       }
     } else {
-      fma_layer<T, P>(in, out, stride, K, N, W, prm.b[l], last, valid, colred, part);
+      fma_layer<T, P>(in, in_stride, out, out_stride, K, N, W, prm.b[l], last, valid,
+                      scratch, part);
     }
     __syncthreads();
-    T* t = in;
-    in = out;
-    out = t;
   }
 }
 
@@ -291,23 +505,28 @@ int launch(const void* points, int batch, int n, int num_layers,
            const void* const* biases, int mask_padding, float* partial,
            float* out, cudaStream_t stream) {
   constexpr int P = Tile<T>::kPoints;
-  constexpr int pad = Tile<T>::kPad;
   Params prm = {};
   prm.points = points;
   prm.n = n;
   prm.num_layers = num_layers;
-  int max_stored = widths[0];
   for (int l = 0; l <= num_layers; ++l) prm.width[l] = widths[l];
-  for (int l = 1; l < num_layers; ++l) max_stored = widths[l] > max_stored ? widths[l] : max_stored;
   for (int l = 0; l < num_layers; ++l) {
     prm.w[l] = weights[l];
     prm.b[l] = static_cast<const float*>(biases[l]);
   }
+  // layer l's output lives in B for even l, in A for odd l; the last one is
+  // never stored
+  int max_a = widths[0], max_b = 0;
+  for (int l = 0; l + 1 < num_layers; ++l) {
+    int& m = l % 2 == 0 ? max_b : max_a;
+    m = widths[l + 1] > m ? widths[l + 1] : m;
+  }
   prm.mask_padding = mask_padding;
   prm.tiles = (n + P - 1) / P;
-  prm.stride = (max_stored + pad - 1) / pad * pad + pad;
+  prm.stride_a = padded_stride<T>(max_a);
+  prm.stride_b = padded_stride<T>(max_b);
   prm.partial = partial;
-  const size_t smem = smem_bytes<T>(prm.stride);
+  const size_t smem = smem_bytes<T>(prm.stride_a, prm.stride_b);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(pointnet_tile_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -8,9 +8,11 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/models/encoders.py``:
   shared per-point MLPs + global max. In eval mode the whole chain runs as
   the fused PointNet (`ops.pointnet_fused`, BN folded from the module's own
   buffers once and reused until the weights change): the kernel on a CUDA
-  tensor, its plain version on a CPU tensor.
+  tensor, its plain version on a CPU tensor. The MLP's parameters and
+  buffers stay f32 when the model is cast, so the fold runs in f32 and each
+  folded weight is rounded once to the working dtype, as in the JAX package.
   Train mode stays plain torch with BatchNorm batch statistics over
-  batch x points.
+  batch x points (in the MLP's f32).
 """
 
 from __future__ import annotations
@@ -69,6 +71,18 @@ class _PointMLP(nn.Module):
             if use_bn:
                 self.add_module(f"bn{i + 1}", nn.BatchNorm1d(out, eps=1e-5, momentum=0.1))
             width = out
+
+    def _apply(self, fn, recurse=True):
+        # BatchNorm folds from the f32 parameters, as the JAX fused path does
+        # (pointnet_pallas.py:51-68): a cast of the model (.to(bf16), .half())
+        # moves this MLP's tensors to the new device but keeps them in f32.
+        def keep_f32(t):
+            out = fn(t)
+            if t.dtype == torch.float32 and out.is_floating_point() and out.dtype != t.dtype:
+                out = t.detach().to(out.device)
+            return out
+
+        return super()._apply(keep_f32, recurse)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(1, self.num_layers + 1):
@@ -153,7 +167,8 @@ class _PointEncoder(nn.Module):
                 x.contiguous(), weights, biases, mask_padding=self.mask_padding
             )
         mask = points_validity_mask(x) if self.mask_padding else None
-        return masked_max(self.point_mlp(x), mask, dim=1)
+        mlp_dtype = self.point_mlp.mlp1.weight.dtype  # f32 under a cast model
+        return masked_max(self.point_mlp(x.to(mlp_dtype)), mask, dim=1).to(x.dtype)
 
 
 class PointNetLiDAREncoder(_PointEncoder):

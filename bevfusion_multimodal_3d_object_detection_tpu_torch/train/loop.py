@@ -78,7 +78,8 @@ def make_eval_step(
         x_min, y_min, _, x_max, y_max, _ = spec.bev.pc_range
         voxel_size = ((x_max - x_min) / spec.bev.bev_w, (y_max - y_min) / spec.bev.bev_h)
     model.to(device).eval()
-    dtype = next(model.parameters()).dtype
+    # the head's: the point MLPs keep f32 parameters under a cast model
+    dtype = next(model.det_head.parameters()).dtype
 
     @torch.inference_mode()
     def eval_step(batch: Dict) -> Dict[str, torch.Tensor]:

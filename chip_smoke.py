@@ -14,9 +14,10 @@ Phases (any failure raises and the script exits non-zero):
    shapes: LiDAR 8x35000x4 -> ...1024 and radar 40x125x7 -> ...256, in
    f32 (TF32 off) and bf16, both mask_padding values, with BatchNorm
    statistics calibrated on the points and random non-zero biases, plus
-   ragged N = 34,999 and 125 with every row a real point. The comparison
-   is shown to reject the plain version with one bias dropped or with
-   zero tiling rows in the max;
+   ragged N = 34,999, 34,945 (1 mod the 128-point bf16 tile), 100 and 125
+   with every row a real point, and a 4->48->80->144 chain (partial weight
+   slabs, an FMA first layer). The comparison is shown to reject the plain
+   version with one bias dropped or with zero tiling rows in the max;
 3. a small f32 forward + decode of the detector on the card against the
    same weights on the CPU (plain PyTorch path), with random non-zero
    biases and BatchNorm statistics, for the pseudo and the geometric
@@ -28,8 +29,10 @@ Phases (any failure raises and the script exits non-zero):
    counters are zeroed just before and read just after. Then the
    steady-state batch latency, samples/s and a per-module device-time
    breakdown;
-5. B1 timings at the LiDAR and radar shapes beside the plain version, a
-   cuBLAS matmul/relu/amax chain as yardstick, and the bound;
+5. B1 timings at the LiDAR and radar shapes (median, min and max of 3,
+   TFLOP/s, share of the bound, and the device time alone from a CUDA
+   graph) beside the plain version, a cuBLAS matmul/relu/amax chain as
+   yardstick, and the bound;
 6. B2 (weighted BEV pool) and B3 (sorted BEV pool) against their plain
    versions (TF32 off), per element, on plans of bench_kernels.py's
    6-camera ring calibration: B2 on 48 rows of 28x50 pixels, D = 40,
@@ -65,10 +68,12 @@ import torch
 from bevfusion_multimodal_3d_object_detection_tpu_torch.config import (
     CompatFlags,
     DetectorSpec,
+    LidarEncoderSpec,
     load_config,
 )
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import chunk_plans, collate_fn
 from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
+from bevfusion_multimodal_3d_object_detection_tpu_torch.models.encoders import PointNetLiDAREncoder
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import _build
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import bev_pool as bp
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import pointnet_fused as pf
@@ -96,7 +101,6 @@ PEAK_BYTES = 3.35e12
 # the magnitude of the rest allows.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -5}
 FLOOR = 2.0 ** -4
-TILE = 64  # B1's bf16 tile; its f32 tile (32) divides it
 PORT, JAX_PKG = "bevfusion_multimodal_3d_object_detection_tpu_torch", "bevfusion_multimodal_3d_object_detection_tpu"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "pointnet_fused": (f"{PORT}/csrc/pointnet_fused.cu", f"{JAX_PKG}/ops/pointnet_pallas.py:116"),
@@ -120,6 +124,22 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Device time of `fn` alone: captured once in a CUDA graph and
+    replayed, so the wrapper's host work (checks, allocation, the ctypes
+    call) is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, iters)
 
 
 def lidar_points(rng: np.random.RandomState, b: int, n: int) -> np.ndarray:
@@ -240,17 +260,28 @@ def fmt(s: dict) -> str:
 
 def check_kernel(encoders, rng) -> float:
     """Phase 2: the kernel against its plain version at the serving shapes,
-    with O(1) activations and non-zero folded biases. The same comparison
+    with O(1) activations and non-zero folded biases, plus ragged LiDAR
+    edges of the bf16 tile (N = 1 mod 128, N < 128) and a chain whose widths
+    are multiples of 16 but not of the 128-column or 32-row weight slabs
+    (4->48->80->144: partial slabs, an FMA first layer). The same comparison
     must reject the plain version with any one layer's bias dropped, and,
     where every row is real, with zero tiling rows let into the max.
     Returns the largest bf16 error (the serving dtype)."""
     worst = 0.0
     failures = []
+    tile = _build.load("pointnet_fused", pf._declare).pointnet_fused_tile_points(1)
     cases = [
         ("lidar", lidar_points(rng, 8, 35000)),
         ("lidar-dense", dense_points(rng, 2, 34999, 4, 40.0)),
+        ("lidar-dense", dense_points(rng, 2, 273 * tile + 1, 4, 40.0)),
+        # 40 rows, as radar: at a few hundred GEMM rows cuBLAS sums the f32
+        # plain version in another order than the kernel, and on this
+        # cancelling cluster either order drifts past the f32 limit
+        ("lidar-dense", dense_points(rng, 40, tile - 28, 4, 40.0)),
         ("radar", radar_points(rng, 40, 125)),
         ("radar-dense", dense_points(rng, 40, 125, 7, 2.0)),
+        ("chain", lidar_points(rng, 3, 3 * tile + 44)),
+        ("chain-dense", dense_points(rng, 2, 2 * tile + 1, 4, 40.0)),
     ]
     for name, pts in cases:
         enc = encoders[name.split("-")[0]]
@@ -275,7 +306,7 @@ def check_kernel(encoders, rng) -> float:
                 for i in range(len(b))
             }
             if name.endswith("dense"):
-                tiled = torch.cat([x, x.new_zeros(x.shape[0], -x.shape[1] % TILE, x.shape[2])], dim=1)
+                tiled = torch.cat([x, x.new_zeros(x.shape[0], -x.shape[1] % tile, x.shape[2])], dim=1)
                 mutants["tiling rows in the max"] = pf.pointnet_fused_reference(tiled, w, b, False)
             for what, bad in mutants.items():
                 s = compare(bad, want, dtype)
@@ -457,7 +488,10 @@ def serve_main_path(config) -> dict:
 
 
 def time_kernel(encoder, points: np.ndarray) -> dict:
-    """Phase 5: bf16 kernel, plain version, cuBLAS chain, and the bound."""
+    """Phase 5: bf16 kernel (median, min and max of 3 timings of 20
+    launches each through the wrapper; achieved TFLOP/s and share of the
+    bound at the median; the device time alone, from a CUDA graph), plain
+    version, cuBLAS chain, and the bound."""
     dtype = torch.bfloat16
     x, w, b = chain_args(encoder, points, dtype, "cuda")
     wb = [v.to(dtype) for v in b]
@@ -474,8 +508,11 @@ def time_kernel(encoder, points: np.ndarray) -> dict:
     nbytes = (x.numel() * 2 + sum(wi.numel() * 2 for wi in w) + sum(bi.numel() * 4 for bi in b)
               + batch * widths[-1] * 2)
     bound = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES) * 1e3
+    runs = sorted(time_ms(lambda: pf.pointnet_fused(x, w, b)) for _ in range(3))
     return {
-        "ms": time_ms(lambda: pf.pointnet_fused(x, w, b)),
+        "ms": runs[1], "ms_min": runs[0], "ms_max": runs[2],
+        "tflops": flops / runs[1] / 1e9, "bound_share": bound / runs[1],
+        "device_ms": graph_ms(lambda: pf.pointnet_fused(x, w, b)),
         "plain_ms": time_ms(lambda: pf.pointnet_fused_reference(x, w, b)),
         "library_ms": time_ms(library),
         "bound_ms": bound,
@@ -741,10 +778,17 @@ def main() -> int:
     spec = DetectorSpec.from_config(config)
     g = torch.Generator().manual_seed(0)
     full = MultiModal3DDetector(spec).init_weights(g).eval()
-    encoders = {"lidar": full.lidar_encoder, "radar": full.radar_encoder.shared_radar}
+    # the chain's widths are multiples of 16 but not of B1's weight slabs
+    chain = PointNetLiDAREncoder(LidarEncoderSpec(mlp_layers=(48, 80, 144))).eval()
+    with torch.no_grad():
+        for m in chain.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.weight.normal_(0.0, m.in_features ** -0.5, generator=g)
+    encoders = {"lidar": full.lidar_encoder, "radar": full.radar_encoder.shared_radar, "chain": chain}
     rng = np.random.RandomState(0)
     calibrate_point_mlp(encoders["lidar"].point_mlp, lidar_points(rng, 2, 4096), g)
     calibrate_point_mlp(encoders["radar"].point_mlp, radar_points(rng, 8, 125), g)
+    calibrate_point_mlp(encoders["chain"].point_mlp, lidar_points(rng, 2, 4096), g)
 
     log("phase 2: B1 against its plain version (TF32 off)")
     max_err = check_kernel(encoders, rng)
@@ -762,6 +806,11 @@ def main() -> int:
     radar_t = time_kernel(encoders["radar"], radar_points(rng, 8 * spec.radar.num_radars,
                                                           spec.radar.max_points_per_sensor))
     log("  " + json.dumps({"lidar_8x35000": lidar_t, "radar_40x125": radar_t}))
+    for what, t in (("LiDAR 8x35000x4", lidar_t), ("radar 40x125x7", radar_t)):
+        log(f"  B1 {what} bf16: {t['ms']:.4f} ms median of 3 ({t['ms_min']:.4f}-{t['ms_max']:.4f}), "
+            f"{t['tflops']:.1f} TFLOP/s, {100 * t['bound_share']:.1f}% of the bound "
+            f"({t['bound_ms']:.4f} ms); device alone {t['device_ms']:.4f} ms; "
+            f"cuBLAS chain {t['library_ms']:.4f} ms")
 
     log("phase 6: B2 and B3 against their plain versions (TF32 off)")
     torch.backends.cudnn.allow_tf32 = False
@@ -787,6 +836,7 @@ def main() -> int:
     lidar_t["shape"] = "lidar 8x35000x4 bf16"
     kernels = [
         dict(entry("pointnet_fused", serve["launches"], max_err, lidar_t),
+             device_ms=lidar_t["device_ms"], radar_device_ms=radar_t["device_ms"],
              radar_ms=radar_t["ms"], radar_plain_ms=radar_t["plain_ms"],
              radar_bound_ms=radar_t["bound_ms"], radar_library_ms=radar_t["library_ms"],
              geometric_launches=geo["launches"]["pointnet_fused"]),
