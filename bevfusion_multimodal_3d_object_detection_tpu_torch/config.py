@@ -1,11 +1,11 @@
 """Config system: YAML loading + typed, hashable model specs.
 
 The port's own copy of the JAX package's config parsing
-(``bevfusion_multimodal_3d_object_detection_tpu/config.py:74-510``): the same
-YAML schema, the same ``compat:`` defaults and the same frozen dataclasses, so
-one ``configs/*.yaml`` drives both packages. Only the model-side specs the
-serving path reads are kept; data and training specs come with the slices that
-port them.
+(``bevfusion_multimodal_3d_object_detection_tpu/config.py:74-510`` and
+``:582-698``): the same YAML schema, the same ``compat:`` defaults and the same
+frozen dataclasses, so one ``configs/*.yaml`` drives both packages. The model
+specs and `TrainSpec` are kept; `DataSpec`, `AugmentSpec` and `ParallelSpec`
+come with the slices that read them (the loader, augmentation, parallelism).
 """
 
 from __future__ import annotations
@@ -465,4 +465,106 @@ class DetectorSpec:
                 num_classes=n_classes,
                 dropout=mlp_cfg.get("dropout", 0.1),
             ),
+        )
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TrainSpec:
+    num_epochs: int = 2
+    batch_size: int = 4
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    grad_clip_norm: float = 10.0
+    grad_clip_enable: bool = True
+    # (heatmap, offset, size, rot, vel). Q7: the reference declares
+    # train.loss_weights but never reads it (train_detect.py:739), so these
+    # CenterNetLoss constructor defaults hold unless
+    # compat.ignore_config_loss_weights is off.
+    loss_weights: Tuple[float, float, float, float, float] = (1.0, 1.0, 1.0, 1.0, 0.1)
+    # LR schedule, applied only when compat.constant_lr is off (Q6)
+    lr_schedule: str = "cosine"
+    lr_t_max: int = 50
+    lr_eta_min: float = 1e-6
+    warmup_epochs: int = 0
+    warmup_initial_lr: float = 1e-5
+    save_dir: str = "./checkpoints"
+    save_interval: int = 5
+    save_best: bool = True
+    seed: int = 42
+    # train.mixed_precision.enable, declared but never read by the reference:
+    # bf16 compute over f32 parameters and optimizer state when honored
+    mixed_precision: bool = False
+    # train.gradient_accumulation (also dead in the reference): the mean of
+    # this many micro-batch gradients per optimizer update
+    grad_accum_steps: int = 1
+    max_objects: int = 500
+    resume_enable: bool = False
+    resume_path: Optional[str] = None
+    ckpt_backend: str = "msgpack"
+    resume_auto: bool = True
+
+    @staticmethod
+    def from_config(cfg: Optional[Dict]) -> "TrainSpec":
+        t = _get(cfg, "train", default={}) or {}
+        compat = CompatFlags.from_config(cfg)
+        if compat.ignore_config_loss_weights:
+            loss_weights = (1.0, 1.0, 1.0, 1.0, 0.1)  # Q7: ctor defaults
+        else:
+            lw = t.get("loss_weights", {}) or {}
+            loss_weights = (
+                lw.get("heatmap", 1.0),
+                lw.get("offset", 1.0),
+                lw.get("size", 1.0),
+                lw.get("rotation", 1.0),
+                lw.get("velocity", 0.1),
+            )
+        opt = t.get("optimizer", {}) or {}
+        sched = t.get("lr_scheduler", {}) or {}
+        warm = t.get("warmup", {}) or {}
+        clip = t.get("grad_clip", {}) or {}
+        ckpt = t.get("checkpoint", {}) or {}
+        resume = t.get("resume", {}) or {}
+        return TrainSpec(
+            num_epochs=t.get("num_epochs", 2),
+            batch_size=t.get("batch_size", 4),
+            loss_weights=loss_weights,
+            learning_rate=opt.get("lr", t.get("learning_rate", 1e-4)),
+            weight_decay=opt.get("weight_decay", t.get("weight_decay", 0.01)),
+            betas=tuple(opt.get("betas", (0.9, 0.999))),
+            eps=opt.get("eps", 1e-8),
+            grad_clip_norm=clip.get("max_norm", 10.0),
+            grad_clip_enable=clip.get("enable", True),
+            lr_schedule=(
+                "cosine"
+                if sched.get("type", "CosineAnnealingLR") == "CosineAnnealingLR"
+                else "constant"
+            ),
+            lr_t_max=sched.get("T_max", 50),
+            lr_eta_min=sched.get("eta_min", 1e-6),
+            warmup_epochs=warm.get("epochs", 5) if warm.get("enable", False) else 0,
+            warmup_initial_lr=warm.get("initial_lr", 1e-5),
+            save_dir=ckpt.get("save_dir", "./checkpoints"),
+            save_interval=ckpt.get("save_interval", 5),
+            save_best=ckpt.get("save_best", True),
+            seed=_get(cfg, "seed", default=42),
+            mixed_precision=(
+                not compat.ignore_mixed_precision
+                and _get(cfg, "train", "mixed_precision", "enable", default=False)
+            ),
+            grad_accum_steps=(
+                _get(cfg, "train", "gradient_accumulation", "steps", default=1)
+                if _get(cfg, "train", "gradient_accumulation", "enable", default=False)
+                else 1
+            ),
+            resume_enable=resume.get("enable", False),
+            resume_path=resume.get("checkpoint_path"),
+            ckpt_backend=ckpt.get("backend", "msgpack"),
+            resume_auto=resume.get("auto", True),
         )

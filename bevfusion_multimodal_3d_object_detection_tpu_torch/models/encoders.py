@@ -3,7 +3,8 @@
 Port of ``bevfusion_multimodal_3d_object_detection_tpu/models/encoders.py``:
 
 - `ResNetCameraEncoder` (``:34-79``): ResNet-18 trunk (stride 16) + 1x1
-  projection 256->512 + BN + ReLU; the 6 views fold into the batch.
+  projection 256->512 + BN + ReLU; the 6 views fold into the batch;
+  ``remat`` checkpoints the trunk's residual blocks in training.
 - `PointNetLiDAREncoder`, `RadarEncoder`, `MultiRadarEncoder` (``:141-283``):
   shared per-point MLPs + global max. In eval mode the whole chain runs as
   the fused PointNet (`ops.pointnet_fused`, BN folded from the module's own
@@ -11,8 +12,9 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/models/encoders.py``:
   tensor, its plain version on a CPU tensor. The MLP's parameters and
   buffers stay f32 when the model is cast, so the fold runs in f32 and each
   folded weight is rounded once to the working dtype, as in the JAX package.
-  Train mode stays plain torch with BatchNorm batch statistics over
-  batch x points (in the MLP's f32).
+  Train mode runs the plain chain (the JAX package trains on it too), with
+  BatchNorm batch statistics over batch x points in the MLP's f32 and
+  flax's running statistics (`models.batch_norm`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch import nn
 
 from ..config import CameraEncoderSpec, LidarEncoderSpec, RadarEncoderSpec
 from ..ops.pointnet_fused import pointnet_fused
+from .batch_norm import FlaxBatchNorm1d
 from .resnet import ResNet18Trunk, batch_norm
 
 _NEG_INF = -1e9
@@ -39,7 +42,7 @@ class ResNetCameraEncoder(nn.Module):
         super().__init__()
         self.spec = spec
         self.fold_bn = fold_bn
-        self.trunk = ResNet18Trunk(fold_bn=fold_bn)
+        self.trunk = ResNet18Trunk(fold_bn=fold_bn, remat=spec.remat)
         self.channel_proj = nn.Conv2d(
             self.trunk.out_channels, spec.out_channels, 1, bias=fold_bn
         )
@@ -69,16 +72,18 @@ class _PointMLP(nn.Module):
         for i, out in enumerate(layers):
             self.add_module(f"mlp{i + 1}", nn.Linear(width, out))
             if use_bn:
-                self.add_module(f"bn{i + 1}", nn.BatchNorm1d(out, eps=1e-5, momentum=0.1))
+                self.add_module(f"bn{i + 1}", FlaxBatchNorm1d(out, eps=1e-5, momentum=0.1))
             width = out
 
     def _apply(self, fn, recurse=True):
         # BatchNorm folds from the f32 parameters, as the JAX fused path does
-        # (pointnet_pallas.py:51-68): a cast of the model (.to(bf16), .half())
-        # moves this MLP's tensors to the new device but keeps them in f32.
+        # (pointnet_pallas.py:51-68): a cast of the model to a narrower type
+        # (.to(bf16), .half()) moves this MLP's tensors to the new device but
+        # keeps them in f32; a cast to f64 is followed.
         def keep_f32(t):
             out = fn(t)
-            if t.dtype == torch.float32 and out.is_floating_point() and out.dtype != t.dtype:
+            if (t.dtype == torch.float32 and out.is_floating_point()
+                    and out.dtype.itemsize < t.dtype.itemsize):
                 out = t.detach().to(out.device)
             return out
 

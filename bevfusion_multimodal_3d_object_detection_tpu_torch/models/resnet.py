@@ -5,19 +5,33 @@ without torchvision. Module names follow the flax tree (``conv1``, ``bn1``,
 ``layer{s}_{b}``, ``downsample_conv``...) so `utils.convert.load_jax_variables`
 maps one onto the other by name. `fold_bn=True` builds the serving variant:
 convs carry a bias and the BatchNorms are gone (weights pre-folded by
-`utils.fold_bn`). The space-to-depth stem is not ported (off by default).
+`utils.fold_bn`). `remat=True` checkpoints each residual block in training
+(``jax.checkpoint`` in the JAX package): the backward recomputes the block's
+forward with its BatchNorms' running statistics frozen, so they update once
+per step, as flax's functional remat does. The space-to-depth stem is not
+ported (off by default).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from .batch_norm import FlaxBatchNorm2d, frozen_statistics
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
+def batch_norm(channels: int) -> FlaxBatchNorm2d:
     # flax momentum 0.9 on the running average == torch momentum 0.1
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return FlaxBatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+def _recompute_contexts(block: nn.Module):
+    return contextlib.nullcontext(), frozen_statistics(block)
 
 
 class BasicBlock(nn.Module):
@@ -61,9 +75,10 @@ class ResNet18Trunk(nn.Module):
     stage_sizes = (2, 2, 2)
     stage_channels = (64, 128, 256)
 
-    def __init__(self, fold_bn: bool = False):
+    def __init__(self, fold_bn: bool = False, remat: bool = False):
         super().__init__()
         self.fold_bn = fold_bn
+        self.remat = remat
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=fold_bn)
         if not fold_bn:
             self.bn1 = batch_norm(64)
@@ -85,5 +100,10 @@ class ResNet18Trunk(nn.Module):
         # torch MaxPool2d(3, stride=2, padding=1) pads with -inf, as flax does
         x = F.max_pool2d(F.relu(x), 3, 2, 1)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if self.remat and self.training and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False,
+                               context_fn=functools.partial(_recompute_contexts, block))
+            else:
+                x = block(x)
         return x

@@ -67,7 +67,9 @@ def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     for collection in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(collection, {})):
             key, to_torch = _target(model, path, collection)
-            arr = np.array(to_torch(np.asarray(value, np.float32)), order="C")
+            value = np.asarray(value)  # f64 stays f64 until the model's dtype
+            value = value if value.dtype == np.float64 else value.astype(np.float32)
+            arr = np.array(to_torch(value), order="C")
             if tuple(arr.shape) != tuple(state[key].shape):
                 raise ValueError(
                     f"{collection}/{'/'.join(path)} -> {key}: shape "

@@ -49,6 +49,29 @@ Phases (any failure raises and the script exits non-zero):
    peak memory and a per-module device-time breakdown;
 8. B2 and B3 timings beside the plain versions, a library yardstick
    (`lift_splat_matmul_rows`; one `index_add_`) and the bound.
+9. the train step, small, on the card against the CPU, for the pseudo and
+   the geometric camera-to-BEV. Each of two steps starts from the same
+   state (the CPU's before it) and is held to the CPU's float64 step at the
+   CPU tests' fixed limits (losses 1e-5 relative, grad_norm 1e-5 in float64
+   and 1e-4 in f32, AdamW first moments 1e-4 of each tensor's largest,
+   parameters 1e-6 but
+   near-zero-gradient elements 2 lr, BatchNorm statistics 1e-5), in float64
+   and in f32 (TF32 off), cameras normalized in float64 on the host. For
+   f32, the reference takes the card's side at every ReLU input and
+   max-pool window that rounding puts on the other side of its kink, where
+   the gradient has no single value (`TieSides`; each such tie must lie
+   within 1e-5 of its tensor's largest). The f32 check is shown to reject a step whose
+   loss reads bf16-rounded predictions;
+10. train steps at full width: configs/base.yaml as it stands, batch 4,
+   uint8 cameras, M = 500 box rows with a few dozen real boxes, seeded
+   weights; f32 (TF32 off) and then with mixed_precision (bf16 autocast).
+   2 warm-up and 5 timed steps on one batch: step ms (host clock up to a
+   synchronize), samples/s, peak memory, the loss of every step, and the
+   device ms of the step's parts (forward, targets and loss, backward,
+   optimizer; CUDA events, 3 more steps). The losses
+   must be finite and fall; the B1 and B2 launch counters must not move in
+   phases 9 and 10 (training runs the plain point chain and the matmul
+   splat, as the JAX package does).
 
 Prints a `kernels` JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.
@@ -56,7 +79,9 @@ last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -64,11 +89,13 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from bevfusion_multimodal_3d_object_detection_tpu_torch.config import (
     CompatFlags,
     DetectorSpec,
     LidarEncoderSpec,
+    TrainSpec,
     load_config,
 )
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import chunk_plans, collate_fn
@@ -84,9 +111,17 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.bev_splat import (
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.decode import (
     decode_centernet_predictions,
 )
-from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.preprocess import normalize_images
+from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.preprocess import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    normalize_images,
+)
 from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import InferenceServer
-from bevfusion_multimodal_3d_object_detection_tpu_torch.train.loop import make_eval_step
+from bevfusion_multimodal_3d_object_detection_tpu_torch.train.loop import (
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them, HBM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -215,7 +250,7 @@ def calibrate_point_mlp(mlp, points: np.ndarray, g: torch.Generator) -> None:
                 m.bias.normal_(0.0, 0.1, generator=g)
         for bn in bns:
             bn.reset_running_stats()
-            bn.momentum = None  # running stats = this one batch's
+            bn.momentum = 1.0  # running stats = this one batch's
         mlp.train()
         mlp(torch.from_numpy(points))
         mlp.eval()
@@ -760,6 +795,357 @@ def time_bev_pools(b2: dict, spec, g: torch.Generator) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 9 and 10: the train step
+# ---------------------------------------------------------------------------
+
+LOSS_KEYS = ("total_loss", "heatmap_loss", "offset_loss", "size_loss", "rot_loss", "vel_loss")
+
+
+def gt_rows(rng: np.random.RandomState, b: int, m: int, n_real: int, pc_range) -> tuple:
+    """(b, m, 7) boxes and (b, m) labels: n_real boxes per sample inside the
+    grid, the other rows zero with label -1 (7 columns, as the JAX loader
+    collates them; velocity targets stay zero, Q12)."""
+    boxes = np.zeros((b, m, 7), np.float32)
+    labels = np.full((b, m), -1, np.int64)
+    x0, y0, _, x1, y1, _ = pc_range
+    for i in range(b):
+        boxes[i, :n_real, 0] = rng.uniform(0.95 * x0, 0.95 * x1, n_real)
+        boxes[i, :n_real, 1] = rng.uniform(0.95 * y0, 0.95 * y1, n_real)
+        boxes[i, :n_real, 2] = rng.uniform(-2.0, 1.0, n_real)
+        boxes[i, :n_real, 3:6] = rng.uniform(0.5, 5.0, (n_real, 3))
+        boxes[i, :n_real, 6] = rng.uniform(-np.pi, np.pi, n_real)
+        labels[i, :n_real] = rng.randint(0, 10, n_real)
+    return boxes, labels
+
+
+def train_batch(spec, rng: np.random.RandomState, b: int, m: int, n_real: int, extra=None) -> dict:
+    h, w = spec.camera.image_size
+    batch = collate_fn([{
+        "camera_imgs": rng.randint(0, 256, (6, h, w, 3), np.uint8),
+        "lidar_points": lidar_points(rng, 2, spec.lidar.max_points)[0],
+        "radar_points": radar_points(rng, spec.radar.num_radars, spec.radar.max_points_per_sensor),
+        **(extra or {}),
+    } for _ in range(b)])
+    batch["gt_boxes"], batch["gt_labels"] = gt_rows(rng, b, m, n_real, spec.bev.pc_range)
+    return batch
+
+
+def small_train_config(config) -> dict:
+    cfg = copy.deepcopy(config)
+    model = cfg["model"]
+    model["camera_encoder"]["input_size"] = [64, 128]
+    cfg["dataset"]["max_points"] = {"lidar": 1000, "radar_per_sensor": 125}
+    model["lidar_encoder"]["mlp_layers"] = [64, 128, 256]
+    model["radar_encoder"].update(mlp_layers=[32, 64, 128], feature_dim=128)
+    model["bev_fusion"].update(bev_h=16, bev_w=16, bev_channels=64)
+    model["centernet_head"].update(in_channels=64, head_conv=32)
+    return cfg
+
+
+class TrainRun:
+    """A model of `dtype` on `device` from a state_dict (and, optionally, an
+    AdamW state after one update), with its optimizer and train step."""
+
+    def __init__(self, spec, compat, train_spec, state, device, dtype, adamw_state=None):
+        self.model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding).to(dtype)
+        self.model.load_state_dict(state)
+        self.opt = make_optimizer(train_spec, compat)
+        self.step = make_train_step(self.model, self.opt, train_spec, compat, check_gradients=True,
+                                    device=device)
+        if adamw_state is not None:  # a copy: AdamW updates its moments in place
+            self.opt.adamw.load_state_dict(copy.deepcopy(adamw_state))
+            self.opt.updates = 1
+
+    def __call__(self, batch) -> dict:
+        losses = {k: float(v) for k, v in self.step(batch).items()}
+        copy64 = lambda t: t.detach().to("cpu", torch.float64, copy=True)
+        state = {k: copy64(v) for k, v in self.model.state_dict().items()}
+        mu = {n: copy64(self.opt.adamw.state[p]["exp_avg"]) for n, p in self.model.named_parameters()}
+        return {"losses": losses, "state": state, "mu": mu,
+                "adamw": copy.deepcopy(self.opt.adamw.state_dict())}
+
+
+def step_errors(got: dict, want: dict, prev_mu, lr: float, what: str, grad_norm_rtol: float = 1e-5) -> tuple:
+    """One step against the same step on the CPU (float64, the same state
+    before it), at the CPU tests' limits (grad_norm at `grad_norm_rtol`:
+    1e-4 in f32, the first moments' limit). Returns the worst ratio to each
+    limit and the failures."""
+    worst = {"losses": 0.0, "first_moments": 0.0, "params": 0.0, "bn_stats": 0.0}
+    where = {}
+    failures = []
+
+    def note(kind, ratio, name):
+        if ratio > worst[kind]:
+            worst[kind], where[kind] = ratio, name
+
+    for k in LOSS_KEYS + ("grad_norm",):
+        rtol = grad_norm_rtol if k == "grad_norm" else 1e-5
+        note("losses", abs(got["losses"][k] - want["losses"][k]) / (rtol * abs(want["losses"][k])), k)
+    largest = max(float(v.abs().max()) for v in want["mu"].values())
+    for name, m in got["mu"].items():
+        ref = want["mu"][name]
+        top = float(ref.abs().max())
+        if top < 1e-9 * largest:  # a bias right before a BatchNorm: zero gradient
+            if float(m.abs().max()) > 1e-5 * largest:
+                failures.append(f"{what} {name}: a zero-gradient first moment is not ~0")
+            small = torch.ones_like(m, dtype=torch.bool)
+        else:
+            note("first_moments", float((m - ref).abs().max()) / (1e-4 * top), name)
+            g = (ref - (0 if prev_mu is None else 0.9 * prev_mu[name])).abs()
+            small = g < 1e-3 * g.max()
+        diff = (got["state"][name] - want["state"][name]).abs()
+        if bool(small.any()) and float(diff[small].max()) > 2 * lr:
+            failures.append(f"{what} {name}: a near-zero-gradient element moved more than 2 lr")
+        if bool((~small).any()):
+            note("params", float(diff[~small].max()) / 1e-6, name)
+    for name, v in want["state"].items():
+        if name.endswith("running_var") or name.endswith("running_mean"):
+            scale = v.abs() if name.endswith("running_var") else v.abs().max()
+            note("bn_stats", float(((got["state"][name] - v).abs() / (1e-5 * scale)).max()), name)
+    failures += [f"{what} {k} at {v:.3g} of the limit ({where.get(k)})" for k, v in worst.items() if not v <= 1.0]
+    return worst, failures
+
+
+def compare_step(got: dict, want: dict, prev_mu, lr: float, what: str, grad_norm_rtol: float = 1e-5) -> dict:
+    """`step_errors`, raising on any failure; returns the worst ratios."""
+    worst, failures = step_errors(got, want, prev_mu, lr, what, grad_norm_rtol)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return worst
+
+
+class TieSides:
+    """Which side of each kink a run took, in call order: for every `F.relu`
+    call, where its input is positive; for every `F.max_pool2d` call, which
+    input each window took. Recorded from one run (`record`) and imposed on
+    another (`replay`). The gradient at a kink has no single value, and f32
+    rounding can put a ReLU input within ~1e-6 of 0, or two inputs of a
+    window within ~1e-7 of each other, on either side; one such tie in a
+    small layer moves a whole branch's gradient (tests/torch_train_helpers.py).
+    Replaying an f32 run's sides into the float64 reference compares the two
+    on the same side. `flips` counts the ties replayed across, `flip_share`
+    is the largest distance among them (from 0, or between the window's max
+    and the input taken) over its tensor's largest |input|."""
+
+    def __init__(self):
+        self.sides, self.flips, self.flip_share = [], 0, 0.0
+
+    @contextlib.contextmanager
+    def _patched(self, relu, max_pool2d):
+        plain = F.relu, F.max_pool2d
+        F.relu, F.max_pool2d = relu, max_pool2d
+        try:
+            yield self
+        finally:
+            F.relu, F.max_pool2d = plain
+
+    def _flipped(self, flip: torch.Tensor, gap: torch.Tensor, x: torch.Tensor) -> None:
+        if bool(flip.any()):
+            self.flips += int(flip.sum())
+            self.flip_share = max(self.flip_share, float(gap[flip].abs().max() / x.detach().abs().max()))
+
+    def record(self):
+        relu, max_pool2d = F.relu, F.max_pool2d
+
+        def record_relu(x, inplace=False):
+            self.sides.append((x > 0).cpu())
+            return relu(x, inplace)
+
+        def record_pool(x, *args, **kwargs):
+            out, idx = max_pool2d(x, *args, **dict(kwargs, return_indices=True))
+            self.sides.append(idx.cpu())
+            return out
+
+        return self._patched(record_relu, record_pool)
+
+    @contextlib.contextmanager
+    def replay(self):
+        sides = iter(self.sides)
+        relu, max_pool2d = F.relu, F.max_pool2d
+
+        def side(shape, device):
+            taken = next(sides).to(device)
+            if taken.shape != shape:
+                raise AssertionError(f"kinks out of step: {tuple(taken.shape)} vs {tuple(shape)}")
+            return taken
+
+        def replay_relu(x, inplace=False):
+            keep = side(x.shape, x.device)
+            self._flipped(keep != (x > 0), x.detach(), x)
+            return torch.where(keep, x, torch.zeros_like(x))
+
+        def replay_pool(x, *args, **kwargs):
+            own, own_idx = max_pool2d(x, *args, **dict(kwargs, return_indices=True))
+            idx = side(own_idx.shape, x.device)
+            out = x.flatten(2).gather(2, idx.flatten(2)).view_as(own)
+            self._flipped(idx != own_idx, (own - out).detach(), x)
+            return out
+
+        with self._patched(replay_relu, replay_pool):
+            yield self
+        if next(sides, None) is not None:
+            raise AssertionError("the replayed run passed fewer kinks than the recorded one")
+
+
+def check_small_train(config) -> dict:
+    """Phase 9. Returns the worst ratio to each limit, per camera-to-BEV and
+    dtype, the ReLU inputs replayed across 0 and the rejected mutant's worst
+    ratio."""
+    out = {}
+    counters = (pf.pointnet_fused, bp.bev_pool_weighted_rows)
+    launches = [k.launches for k in counters]
+    for name, base in (("pseudo", config), ("geometric", geometric_config(config))):
+        cfg = small_train_config(base)
+        spec, compat, ts = DetectorSpec.from_config(cfg), CompatFlags.from_config(cfg), TrainSpec.from_config(cfg)
+        lr = ts.learning_rate
+        g = torch.Generator().manual_seed(7)
+        model = randomize_stats(MultiModal3DDetector(spec).init_weights(g), g)
+        with torch.no_grad():  # O(1) head outputs
+            for m in model.det_head.modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=g)
+        state0 = model.state_dict()
+        rng = np.random.RandomState(8)
+        plans = camera_plan_inputs(spec) if name == "geometric" else None
+        batches = [train_batch(spec, rng, 2, 16, 5, plans) for _ in range(2)]
+        # cameras normalized in float64 on the host: the uint8 wire normalized
+        # in f32 on each device differs by an ulp here and there
+        batches = [dict(b, camera_imgs=(b["camera_imgs"] / 255.0 - IMAGENET_MEAN.astype(np.float64))
+                        / IMAGENET_STD.astype(np.float64)) for b in batches]
+        cpu_steps = []
+        for b in batches:
+            start = cpu_steps[-1] if cpu_steps else {"state": state0, "adamw": None}
+            cpu_steps.append(TrainRun(spec, compat, ts, start["state"], "cpu", torch.float64, start["adamw"])(b))
+
+        def starts(i):
+            return (state0, None, None) if i == 0 else (cpu_steps[0]["state"], cpu_steps[0]["adamw"],
+                                                        cpu_steps[0]["mu"])
+
+        # float64 on the card, each step from the CPU's state before it
+        worst = {}
+        for i, b in enumerate(batches):
+            state, adamw, prev_mu = starts(i)
+            got = TrainRun(spec, compat, ts, state, "cuda", torch.float64, adamw)(b)
+            w = compare_step(got, cpu_steps[i], prev_mu, lr, f"{name} float64 step {i + 1}")
+            worst = {k: max(v, worst.get(k, 0.0)) for k, v in w.items()}
+
+        # f32 on the card, each step from the CPU's state before it, against
+        # the CPU's float64 step on the card's side of every tie
+        f32_worst, ties = {}, []
+        for i, b in enumerate(batches):
+            state, adamw, prev_mu = starts(i)
+            ties.append(TieSides())
+            with ties[i].record():
+                got = TrainRun(spec, compat, ts, state, "cuda", torch.float32, adamw)(b)
+            with ties[i].replay():
+                want = TrainRun(spec, compat, ts, state, "cpu", torch.float64, adamw)(b)
+            if i == 0:
+                want1 = want
+            w = compare_step(got, want, prev_mu, lr, f"{name} f32 step {i + 1}", 1e-4)
+            f32_worst = {k: max(v, f32_worst.get(k, 0.0)) for k, v in w.items()}
+        share = max(t.flip_share for t in ties)
+        if not share <= 1e-5:
+            raise AssertionError(f"{name}: the f32 step took the other side of a kink {share:.3g} of its "
+                                 "tensor's largest away")
+
+        # a wrong f32 step: the loss reads bf16-rounded predictions (the
+        # forward, and so the sides of its ties, are step 1's)
+        mutant = TrainRun(spec, compat, ts, state0, "cuda", torch.float32)
+        loss = mutant.step.loss
+        mutant.step.loss = lambda preds, batch: loss({k: v.bfloat16() for k, v in preds.items()}, batch)
+        got = mutant(batches[0])
+        # the lambda refers back to the step: without this the cycle would
+        # keep the model and its AdamW state on the card into phase 10
+        del mutant.step.loss
+        mutant_worst, failures = step_errors(got, want1, None, lr, f"{name} bf16-loss mutant", 1e-4)
+        if not failures:
+            raise AssertionError(f"{name}: the f32 check passed a step whose loss read bf16 predictions")
+        out[name] = {"float64": worst, "f32": f32_worst, "f32_ties_across": sum(t.flips for t in ties),
+                     "f32_tie_share": share, "bf16_loss_mutant": mutant_worst}
+        log(f"  small train {name}: worst share of each limit " + json.dumps(out[name]))
+    if [k.launches for k in counters] != launches:
+        raise AssertionError("a train step launched B1 or B2")
+    return out
+
+
+def train_breakdown(step, batch, reps: int = 3) -> dict:
+    """Device ms of each part of one train step (CUDA events between the
+    parts of `TrainStep.__call__`, median of `reps`): the forward with the
+    batch's copy to the card and the uint8 normalize, the targets and loss,
+    the backward, and the optimizer update (clip + AdamW). Runs `reps` more
+    steps."""
+    names = ("forward", "targets_and_loss", "backward", "optimizer")
+    ms = {k: [] for k in names}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        preds = step.forward(batch)
+        ev[1].record()
+        losses = step.loss(preds, batch)
+        ev[2].record()
+        grads = step.gradients(losses["total_loss"])
+        ev[3].record()
+        step.update(losses, grads)
+        ev[4].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(names):
+            ms[k].append(ev[i].elapsed_time(ev[i + 1]))
+    return {k: float(np.median(v)) for k, v in ms.items()}
+
+
+def train_full_width(config) -> dict:
+    """Phase 10: make_train_step on base.yaml at full width, batch 4, in f32
+    and with mixed_precision (bf16 autocast)."""
+    spec, compat = DetectorSpec.from_config(config), CompatFlags.from_config(config)
+    ts = TrainSpec.from_config(config)
+    rng = np.random.RandomState(9)
+    batch = train_batch(spec, rng, ts.batch_size, ts.max_objects, 40)
+    out = {}
+    for name, mixed in (("f32", False), ("bf16_mixed_precision", True)):
+        g = torch.Generator().manual_seed(10)
+        model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding).init_weights(g)
+        run_spec = dataclasses.replace(ts, mixed_precision=mixed)
+        opt = make_optimizer(run_spec, compat)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = make_train_step(model, opt, run_spec, compat)
+        counters = (pf.pointnet_fused, bp.bev_pool_weighted_rows)
+        for k in counters:
+            k.launches = 0
+        losses, times = [], []
+        for i in range(7):
+            t = time.perf_counter()
+            loss = step(batch)["total_loss"]
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(loss))
+        launches = {k.__name__: k.launches for k in counters}
+        if any(launches.values()):
+            raise AssertionError(f"the train step launched kernels of the inference path: {launches}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{name} train losses are not finite and falling: {losses}")
+        if not all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in model.parameters()):
+            raise AssertionError(f"{name}: parameters left f32 or went non-finite")
+        ms = float(np.median(times))
+        parts = train_breakdown(step, batch)
+        out[name] = {
+            "batch": ts.batch_size, "step_ms": times, "step_ms_p50": ms, "part_ms": parts,
+            "samples_per_s": ts.batch_size / ms * 1e3,
+            "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "losses": losses, "launches": launches,
+            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                     "cudnn": torch.backends.cudnn.allow_tf32},
+        }
+        log(f"  train {name}: {ms:.2f} ms per step of {ts.batch_size} (p50 of 5), "
+            f"{out[name]['samples_per_s']:.1f} samples/s, {out[name]['max_memory_gib']:.2f} GiB peak, "
+            f"loss {losses[0]:.4g} -> {losses[-1]:.4g}; device ms "
+            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+        del model, opt, step
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -825,6 +1211,14 @@ def main() -> int:
     log("phase 8: B2 and B3 timings")
     pools = time_bev_pools(b2_inputs, spec, g_cuda)
     log("  " + json.dumps(pools))
+
+    log("phase 9: small train step on the card against the CPU (float64; f32 with TF32 off)")
+    torch.backends.cudnn.allow_tf32 = False
+    small_train = check_small_train(config)
+
+    log("phase 10: train steps at full width (batch 4; f32 with TF32 off, then bf16 mixed precision)")
+    train = train_full_width(config)
+    log("  " + json.dumps({"train_full_width": train}))
 
     def entry(name, launches, err, t):
         source, replaces = KERNELS[name]

@@ -34,22 +34,29 @@ def test_port_imports_without_jax():
         timeout=120, cwd=str(ROOT),
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 23  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 28  # every module was imported
 
 
-@pytest.mark.parametrize("config", ["base.yaml", "bev100.yaml", "base.yaml:geometric"])
+@pytest.mark.parametrize("config", ["base.yaml", "bev100.yaml", "base.yaml:geometric", "base.yaml:train"])
 def test_config_parsing_matches_jax(config):
     """`:geometric` overrides base.yaml in memory with the geometric eval
-    path's camera_to_bev: geometric and splat_mode: pallas."""
+    path's camera_to_bev: geometric and splat_mode: pallas; `:train` honors
+    the YAML loss weights and mixed precision (Q7 off) and turns on
+    gradient accumulation."""
     from bevfusion_multimodal_3d_object_detection_tpu import config as jax_config
     from bevfusion_multimodal_3d_object_detection_tpu_torch import config as port_config
 
     name, _, override = config.partition(":")
     cfg = port_config.load_config(str(ROOT / "configs" / name))
-    if override:
+    if override == "geometric":
         cfg["model"]["bev_fusion"].update(camera_to_bev="geometric", splat_mode="pallas")
         assert port_config.DetectorSpec.from_config(cfg).bev.splat_mode == "pallas"
-    for name in ("DetectorSpec", "CompatFlags"):
+    elif override == "train":
+        cfg.setdefault("compat", {}).update(ignore_config_loss_weights=False, ignore_mixed_precision=False)
+        cfg["train"]["gradient_accumulation"] = {"enable": True, "steps": 3}
+        train = port_config.TrainSpec.from_config(cfg)
+        assert train.mixed_precision and train.grad_accum_steps == 3 and train.loss_weights[2] != 1.0
+    for name in ("DetectorSpec", "CompatFlags", "TrainSpec"):
         port = getattr(port_config, name).from_config(cfg)
         ref = getattr(jax_config, name).from_config(cfg)
         assert dataclasses.asdict(port) == dataclasses.asdict(ref), name

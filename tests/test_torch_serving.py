@@ -107,3 +107,23 @@ def test_server_contract(narrow_config):
     idle.stop()
     with pytest.raises(ServerStoppedError):
         fut.result(timeout=5)
+
+
+def test_bf16_server_matches_jax_fused_server(narrow_config, variables):
+    """ROADMAP C2. The port's bf16 server always runs the fused PointNet
+    (its plain version on the CPU); JAX's does with use_pallas=True (the
+    Pallas kernel in interpret mode on the CPU). Per sample, the sorted
+    scores of the 100 detections agree within 3e-2 absolute (scores up to
+    ~0.68): the spread of bf16 itself, since JAX's bf16 servers differ from
+    its f32 server by up to 4.1e-2 here. Found: 1.8e-2 to JAX's fused
+    server and 1.8e-2 to its default (use_pallas=False) one; the two JAX
+    bf16 servers differ by 1.4e-2."""
+    kw = dict(config=narrow_config, batch_size=2, score_threshold=0.0, use_bf16=True,
+              fold_bn=True, variables=variables)
+    samples = _samples(DetectorSpec.from_config(narrow_config), 2, seed=5)
+    want = JaxServer(use_pallas=True, **kw)._run_batch(samples)
+    got = InferenceServer(device="cpu", **kw)._run_batch(samples)
+    for g, w in zip(got, want):
+        assert len(g["scores"]) == len(w["scores"]) == 100
+        np.testing.assert_allclose(np.sort(g["scores"]), np.sort(w["scores"]), rtol=0, atol=3e-2)
+        assert np.isfinite(g["boxes"]).all()
