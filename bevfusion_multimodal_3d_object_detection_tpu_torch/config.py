@@ -4,8 +4,8 @@ The port's own copy of the JAX package's config parsing
 (``bevfusion_multimodal_3d_object_detection_tpu/config.py:74-510`` and
 ``:582-698``): the same YAML schema, the same ``compat:`` defaults and the same
 frozen dataclasses, so one ``configs/*.yaml`` drives both packages. The model
-specs and `TrainSpec` are kept; `DataSpec`, `AugmentSpec` and `ParallelSpec`
-come with the slices that read them (the loader, augmentation, parallelism).
+specs, `TrainSpec` and `DataSpec` are kept; `AugmentSpec` and `ParallelSpec`
+come with the slices that read them (augmentation, parallelism).
 """
 
 from __future__ import annotations
@@ -15,6 +15,36 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 import yaml
+
+# The 10 nuScenes classes in dataset/label-encoding order
+# (ref: configs/base.yaml:33-43, train_detect.py:191-195).
+DEFAULT_CLASSES: Tuple[str, ...] = (
+    "car",
+    "truck",
+    "trailer",
+    "bus",
+    "construction_vehicle",
+    "bicycle",
+    "motorcycle",
+    "pedestrian",
+    "traffic_cone",
+    "barrier",
+)
+
+# The (different) order utils_v2.py reports per-class AP in
+# (ref: utils_v2.py:98-101) — quirk Q9.
+METRIC_REPORT_CLASSES: Tuple[str, ...] = (
+    "car",
+    "truck",
+    "bus",
+    "trailer",
+    "construction_vehicle",
+    "pedestrian",
+    "motorcycle",
+    "bicycle",
+    "traffic_cone",
+    "barrier",
+)
 
 DEFAULT_PC_RANGE: Tuple[float, ...] = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
 
@@ -26,6 +56,14 @@ CAMERA_ORDER: Tuple[str, ...] = (
     "CAM_BACK",
     "CAM_BACK_LEFT",
     "CAM_BACK_RIGHT",
+)
+
+RADAR_ORDER: Tuple[str, ...] = (
+    "RADAR_FRONT",
+    "RADAR_FRONT_LEFT",
+    "RADAR_FRONT_RIGHT",
+    "RADAR_BACK_LEFT",
+    "RADAR_BACK_RIGHT",
 )
 
 
@@ -465,6 +503,61 @@ class DetectorSpec:
                 num_classes=n_classes,
                 dropout=mlp_cfg.get("dropout", 0.1),
             ),
+        )
+
+
+# ---------------------------------------------------------------------------
+# Data
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DataSpec:
+    data_root: str = "data/nuscenes"
+    version: str = "v1.0-mini"
+    classes: Tuple[str, ...] = DEFAULT_CLASSES
+    pc_range: Tuple[float, ...] = DEFAULT_PC_RANGE
+    bev_h: int = 50
+    bev_w: int = 50
+    max_lidar_points: int = 35000
+    max_radar_points: int = 125
+    image_size: Tuple[int, int] = (448, 800)
+    num_cameras: int = 6
+    num_radars: int = 5
+    split_ratios: Tuple[float, float, float] = (0.7, 0.2, 0.1)
+    num_sweeps: int = 1
+    # radar sweep aggregation (the reference never reads radar files, Q4)
+    radar_num_sweeps: int = 1
+    image_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    image_std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    # opt-in: JPEG decode at a reduced DCT scale (PIL draft mode), then the
+    # bilinear resize; pixels differ slightly from the reference's full
+    # decode (ref: train_detect.py:129-137)
+    jpeg_draft_decode: bool = False
+
+    @staticmethod
+    def from_config(cfg: Optional[Dict]) -> "DataSpec":
+        d = _get(cfg, "dataset", default={}) or {}
+        ratios = d.get("split_ratios", {}) or {}
+        aug_norm = _get(d, "augmentation", "camera", "normalize", default={}) or {}
+        return DataSpec(
+            data_root=d.get("data_root", "data/nuscenes"),
+            version=d.get("version", "v1.0-mini"),
+            classes=tuple(d.get("classes", DEFAULT_CLASSES)),
+            pc_range=tuple(d.get("point_cloud_range", DEFAULT_PC_RANGE)),
+            bev_h=d.get("bev_h", 50),
+            bev_w=d.get("bev_w", 50),
+            max_lidar_points=_get(d, "max_points", "lidar", default=35000),
+            max_radar_points=_get(d, "max_points", "radar_per_sensor", default=125),
+            image_size=tuple(_get(d, "cameras", "image_size", default=(448, 800))),
+            num_cameras=_get(d, "cameras", "num_cameras", default=6),
+            num_radars=_get(d, "radars", "num_radars", default=5),
+            split_ratios=(ratios.get("train", 0.7), ratios.get("val", 0.2), ratios.get("test", 0.1)),
+            num_sweeps=d.get("num_sweeps", 1),
+            radar_num_sweeps=d.get("radar_num_sweeps", 1),
+            image_mean=tuple(aug_norm.get("mean", (0.485, 0.456, 0.406))),
+            image_std=tuple(aug_norm.get("std", (0.229, 0.224, 0.225))),
+            jpeg_draft_decode=bool(d.get("jpeg_draft_decode", False)),
         )
 
 

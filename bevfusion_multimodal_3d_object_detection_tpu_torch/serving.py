@@ -16,8 +16,11 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/serving.py:41-515``
 - per-request futures; `stop()` fails queued requests with
   `ServerStoppedError`.
 
-Weights come from `variables=` (the JAX model's ``{"params",
-"batch_stats"}`` tree as numpy arrays, unfolded) or from a seeded init.
+Weights come from `model_path=` (a msgpack checkpoint of either package;
+a failed restore raises), from `variables=` (the JAX model's ``{"params",
+"batch_stats"}`` tree as numpy arrays, unfolded) or, with neither, from the
+seeded init of `utils.restore.load_serving_variables` (which loads a
+pretrained camera trunk where one is configured and present).
 """
 
 from __future__ import annotations
@@ -38,9 +41,7 @@ from .ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, normalize_images
 from .utils.convert import load_jax_variables
 from .utils.device import resolve_device
 from .utils.fold_bn import fold_camera_variables
-
-
-_INIT_SEED = 0  # seeded random weights when no variables are given
+from .utils.restore import load_serving_variables
 
 
 class ServerStoppedError(RuntimeError):
@@ -60,6 +61,7 @@ class InferenceServer:
         fold_bn: bool = True,
         variables: Optional[Dict] = None,
         device=None,
+        model_path: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         self.config = config if config is not None else load_config(config_path)
@@ -75,17 +77,18 @@ class InferenceServer:
             self.score_threshold = self.post_process.score_threshold
         self.dtype = torch.bfloat16 if use_bf16 else torch.float32
 
+        if variables is None:
+            variables = load_serving_variables(self.spec, model_path)
+        elif model_path is not None:
+            raise ValueError("pass model_path or variables, not both")
         model = MultiModal3DDetector(
             self.spec,
             mask_padding=not self.compat.unmasked_point_padding,
             fold_bn=fold_bn,
         )
-        if variables is None:
-            model.init_weights(torch.Generator().manual_seed(_INIT_SEED))
-        else:
-            if fold_bn:
-                variables = fold_camera_variables(variables)
-            load_jax_variables(model, variables)
+        if fold_bn:
+            variables = fold_camera_variables(variables)
+        load_jax_variables(model, variables)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
 
         if self.compat.eval_decode_voxel_0512:

@@ -1,7 +1,7 @@
-"""The train step and the eval step of one collated batch.
+"""The train step, the eval step and the Trainer.
 
 Port of ``bevfusion_multimodal_3d_object_detection_tpu/train/loop.py``
-``:46-291``:
+``:46-615``:
 
 - `make_optimizer` (``:46-88``): optax's global-norm clip, then AdamW with a
   learning rate per update (constant under Q6, else cosine with an optional
@@ -9,7 +9,9 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/train/loop.py``
 - `make_train_step` (``:131-239``): forward in train mode (BatchNorm batch
   statistics), CenterNet targets on the device, loss, backward and one
   optimizer update, with bf16 autocast under ``train.mixed_precision``;
-- `make_eval_step` (``:242-291``): forward + decode.
+- `make_eval_step` (``:242-291``): forward + decode;
+- `Trainer` (``:294-615``): epochs with a per-step JSONL log, validation
+  with mAP/NDS, and checkpoints in the JAX package's layout.
 
 The batch is the JAX package's dict of numpy arrays
 (`data.dataset.collate_fn`, plus ``gt_boxes`` and ``gt_labels`` to train):
@@ -174,6 +176,8 @@ class Optimizer:
 
     def __init__(self, train_spec: TrainSpec, compat: CompatFlags, steps_per_epoch: int = 1):
         self.lr_at = lr_schedule(train_spec, compat, steps_per_epoch)
+        # optax keeps a schedule's own count beside AdamW's (utils.convert)
+        self.scheduled = not (compat.constant_lr or train_spec.lr_schedule == "constant")
         self.max_norm = train_spec.grad_clip_norm if train_spec.grad_clip_enable else None
         self.every_k = train_spec.grad_accum_steps
         self._adamw_args = dict(betas=tuple(train_spec.betas), eps=train_spec.eps,
@@ -318,3 +322,170 @@ def make_train_step(
     device = resolve_device(device)
     model.to(device).train()
     return TrainStep(model, optimizer, train_spec, compat, check_gradients, device)
+
+
+class Trainer:
+    """Epochs, validation with mAP/NDS, and checkpoints over `make_train_step`
+    and `make_eval_step` (``train/loop.py:294-615`` of the JAX package,
+    mirroring the reference ``main()``, ref: train_detect.py:590-813).
+
+    `init_state` seeds the model from ``train_spec.seed`` and loads the
+    camera trunk from a local torchvision file under
+    ``camera_encoder.pretrained``. Checkpoints hold the JAX package's payload
+    (``params``, ``batch_stats``, ``opt_state``, ``step``, ``epoch``,
+    ``best_map``) in its layout, so each package restores the other's.
+    Mesh, ZeRO and multi-process training are not ported (ROADMAP A13)."""
+
+    def __init__(
+        self,
+        model: MultiModal3DDetector,
+        train_spec: TrainSpec,
+        compat: CompatFlags = CompatFlags(),
+        steps_per_epoch: int = 1,
+        check_gradients: bool = False,
+        device=None,
+    ):
+        self.model = model
+        self.spec = model.spec
+        self.train_spec = train_spec
+        self.compat = compat
+        self.check_gradients = check_gradients
+        self.device = resolve_device(device)
+        self.optimizer = make_optimizer(train_spec, compat, steps_per_epoch)
+        self.train_step: Optional[TrainStep] = None
+        self.eval_step: Optional[Callable] = None
+        self.best_map = -1.0
+
+    # -- state ---------------------------------------------------------------
+    def init_state(self) -> "Trainer":
+        """Seeded weights, the pretrained camera trunk where configured, and
+        a fresh optimizer (the JAX package's takes a sample batch to trace
+        its init; the port's shapes do not depend on one)."""
+        from ..utils.torch_convert import maybe_load_pretrained_camera
+
+        self.model.init_weights(torch.Generator().manual_seed(self.train_spec.seed))
+        maybe_load_pretrained_camera(self.model, self.spec)
+        self.train_step = make_train_step(
+            self.model, self.optimizer, self.train_spec, self.compat,
+            check_gradients=self.check_gradients, device=self.device,
+        )
+        self.eval_step = make_eval_step(self.model, self.compat, device=self.device)
+        return self
+
+    @property
+    def step(self) -> int:
+        """Train-step calls so far, restored with a checkpoint."""
+        return self.train_step.step
+
+    # -- loops ---------------------------------------------------------------
+    def train_one_epoch(self, loader, log_every: int = 10, log_file: Optional[str] = None) -> float:
+        """One pass over `loader`; returns the mean total loss and appends one
+        JSON line per step to `log_file` (``step``, ``step_seconds`` and the
+        loss terms), closed even when a step fails."""
+        if self.train_step is None:
+            raise RuntimeError("call init_state first")
+        log_fh = open(log_file, "a") if log_file else None
+        try:
+            return self._epoch_inner(loader, log_every, log_fh)
+        finally:
+            if log_fh:
+                log_fh.close()
+
+    def _epoch_inner(self, loader, log_every, log_fh) -> float:
+        import json
+        import time
+
+        total, count = 0.0, 0
+        for i, batch in enumerate(loader):
+            t0 = time.perf_counter()
+            # the fused splat's chunk plans are for inference only
+            batch = {k: v for k, v in batch.items() if k not in (
+                "camera_point_idx", "camera_local_ids", "camera_block_idx")}
+            losses = self.train_step(batch)
+            loss = float(losses["total_loss"])
+            step_s = time.perf_counter() - t0
+            total += loss
+            count += 1
+            if log_every and (i % log_every == 0):
+                print(f"  step {self.step}: loss={loss:.4f} "
+                      f"hm={float(losses.get('heatmap_loss', 0.0)):.4f} ({step_s * 1000:.0f} ms)")
+            if log_fh:
+                log_fh.write(json.dumps({
+                    "step": self.step,
+                    "step_seconds": round(step_s, 4),
+                    **{k: round(float(v), 6) for k, v in losses.items()},
+                }) + "\n")
+        return total / max(count, 1)
+
+    def evaluate(self, loader, score_thresh: float = 0.0, post_process=None) -> Dict:
+        """Validation pass: decode and metrics (the training-eval decode with
+        score_thresh 0.0, ref: train_detect.py:500-536). `post_process`, a
+        `PostProcessSpec` (``compat.ignore_post_processing_config`` off),
+        applies its score threshold, BEV NMS and cap instead."""
+        from ..ops.decode import decode_to_host
+        from ..utils.metrics import compute_metrics
+
+        if self.eval_step is None:
+            raise RuntimeError("call init_state first")
+        predictions, ground_truths = [], []
+        for batch in loader:
+            n = len(batch["gt_boxes"])
+            decoded = self.eval_step(batch)
+            if post_process is not None:
+                dets = decode_to_host(
+                    decoded, score_thresh=post_process.score_threshold,
+                    nms_thresh=post_process.nms_threshold, max_detections=post_process.max_detections,
+                )
+            else:
+                dets = decode_to_host(decoded, score_thresh=score_thresh)
+            predictions.extend(dets)
+            for bi in range(n):
+                ground_truths.append({"boxes": np.asarray(batch["gt_boxes"][bi]),
+                                      "labels": np.asarray(batch["gt_labels"][bi])})
+        return compute_metrics(
+            predictions, ground_truths, num_classes=self.spec.num_classes,
+            report_class_order="reference" if self.compat.metric_report_class_order else "dataset",
+        )
+
+    # -- checkpointing ---------------------------------------------------------
+    def _payload(self, epoch: int, best_map: float, empty: bool = False) -> Dict:
+        from ..utils.convert import export_jax_variables, opt_state_to_jax
+
+        variables = export_jax_variables(self.model, empty=empty)
+        return {
+            "params": variables["params"],
+            "batch_stats": variables["batch_stats"],
+            "opt_state": opt_state_to_jax(self.optimizer, self.model, empty=empty),
+            "step": np.asarray(self.step, np.int32),
+            "epoch": np.asarray(epoch, np.int32),
+            "best_map": np.asarray(best_map, np.float32),
+        }
+
+    def save_checkpoint(self, path: str, epoch: int) -> None:
+        """Write the payload in the JAX package's msgpack layout."""
+        from .checkpoint import save_checkpoint
+
+        save_checkpoint(path, self._payload(epoch, self.best_map))
+
+    def load_checkpoint(self, path: str, restore_optimizer: bool = True,
+                        keep_on_shape_mismatch: bool = False) -> int:
+        """Restore parameters, BatchNorm statistics, the step count, the best
+        mAP and (with `restore_optimizer`) the optimizer state from `path`,
+        with the JAX package's strict=False merge; returns the saved epoch."""
+        from ..utils.convert import load_jax_variables, opt_state_from_jax
+        from .checkpoint import fill_kept, load_checkpoint
+
+        if self.train_step is None:
+            raise RuntimeError("init_state before restoring")
+        # the template gives keys, shapes and dtypes without exporting the
+        # state; only a leaf the file lacks reads the current value
+        template = self._payload(0, 0.0, empty=True)
+        restored = load_checkpoint(path, template, keep_on_shape_mismatch=keep_on_shape_mismatch)
+        restored = fill_kept(restored, template, lambda: self._payload(0, 0.0))
+        load_jax_variables(self.model, {"params": restored["params"],
+                                        "batch_stats": restored["batch_stats"]})
+        if restore_optimizer:
+            opt_state_from_jax(self.optimizer, self.model, restored["opt_state"])
+        self.train_step.step = int(restored["step"])
+        self.best_map = float(restored["best_map"])
+        return int(restored["epoch"])

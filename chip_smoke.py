@@ -71,7 +71,24 @@ Phases (any failure raises and the script exits non-zero):
    optimizer; CUDA events, 3 more steps). The losses
    must be finite and fall; the B1 and B2 launch counters must not move in
    phases 9 and 10 (training runs the plain point chain and the matmul
-   splat, as the JAX package does).
+   splat, as the JAX package does);
+11. the training entry point: a synthetic nuScenes tree in a temporary
+   directory (8 train and 4 val samples from `write_synthetic_infos`, six
+   1600x900 JPEGs and a 60,000-point LiDAR bin each, Q4 radar), then
+   `train_detect.main` on configs/base.yaml at full width with only the
+   data root, save and log directories, num_epochs 1 and save_interval 1
+   overridden (batch 4, f32 as base.yaml trains, TF32 off); then again with
+   num_epochs 2 and resume on. The resumed run must start at epoch 1 with
+   parameters, BatchNorm statistics, AdamW moments and counts equal to the
+   saved ones bit for bit; losses finite, the per-step log with the JAX
+   keys, metrics_output.txt in the JAX report format, exactly
+   checkpoint_epoch_1 and best_model after keep_last 1, and B1 launched 2
+   times per validation batch and never in a train epoch (launch counter
+   zeroed just before and read just after). best_model.msgpack served by
+   `InferenceServer(model_path=..., use_bf16=False, fold_bn=False)` must
+   agree with the Trainer's own f32 eval step at 1e-4 of the scores'
+   scale. Prints epoch, loader, validation and checkpoint times and the
+   peak device memory.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.
@@ -83,9 +100,14 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
+import pickle
+import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -98,7 +120,15 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.config import (
     TrainSpec,
     load_config,
 )
-from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import chunk_plans, collate_fn
+from bevfusion_multimodal_3d_object_detection_tpu_torch import train_detect
+from bevfusion_multimodal_3d_object_detection_tpu_torch.data import native
+from bevfusion_multimodal_3d_object_detection_tpu_torch.data.converter import write_synthetic_infos
+from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import (
+    DataLoader,
+    NuScenesDataset,
+    chunk_plans,
+    collate_fn,
+)
 from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
 from bevfusion_multimodal_3d_object_detection_tpu_torch.models.encoders import PointNetLiDAREncoder
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import _build
@@ -110,6 +140,7 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.bev_splat import (
 )
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.decode import (
     decode_centernet_predictions,
+    decode_to_host,
 )
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.preprocess import (
     IMAGENET_MEAN,
@@ -118,9 +149,14 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.preprocess import (
 )
 from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import InferenceServer
 from bevfusion_multimodal_3d_object_detection_tpu_torch.train.loop import (
+    Trainer,
     make_eval_step,
     make_optimizer,
     make_train_step,
+)
+from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.convert import (
+    export_jax_variables,
+    opt_state_to_jax,
 )
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them, HBM
@@ -1146,6 +1182,282 @@ def train_full_width(config) -> dict:
     return out
 
 
+# the keys of a JAX per-step log line (train/loop.py:_epoch_inner of the JAX
+# package: step, step_seconds and its CenterNet loss dict)
+JAX_LOG_KEYS = {"step", "step_seconds", "total_loss", "heatmap_loss", "offset_loss", "size_loss",
+                "rot_loss", "vel_loss"}
+REPORT_CLASSES = ("car", "truck", "bus", "trailer", "construction_vehicle", "pedestrian", "motorcycle",
+                  "bicycle", "traffic_cone", "barrier")  # Q9's report order
+
+
+def write_nuscenes_tree(root: Path, config: dict, train: int, val: int, n_points: int) -> dict:
+    """Synthetic nuScenes infos (`write_synthetic_infos`) with their sensor
+    files: six RGB JPEGs per sample at the native 1600x900, smooth noise
+    (a 90x160 seeded image upsampled, as camera frames are smooth), and a
+    LiDAR .bin of `n_points` five-float points inside point_cloud_range
+    [x, y, z, intensity in [0, 1), ring in [0, 2.9)]. Radar stays quirk Q4's
+    random points (no files)."""
+    from PIL import Image
+
+    t = time.perf_counter()
+    write_synthetic_infos(str(root), splits=("train", "val"), samples_per_split=max(train, val), seed=11)
+    rng = np.random.RandomState(11)
+    x0, y0, z0, x1, y1, z1 = config["dataset"]["point_cloud_range"]
+    n_files, n_bytes = 0, 0
+    for split, n in (("train", train), ("val", val)):
+        path = root / f"nuscenes_infos_{split}.pkl"
+        data = pickle.loads(path.read_bytes())
+        data["infos"] = data["infos"][:n]
+        path.write_bytes(pickle.dumps(data))
+        for info in data["infos"]:
+            pts = np.empty((n_points, 5), np.float32)
+            pts[:, 0] = rng.uniform(x0 + 0.1, x1 - 0.1, n_points)
+            pts[:, 1] = rng.uniform(y0 + 0.1, y1 - 0.1, n_points)
+            pts[:, 2] = rng.uniform(z0 + 0.1, z1 - 0.1, n_points)
+            pts[:, 3] = rng.uniform(0.0, 1.0, n_points)
+            pts[:, 4] = rng.uniform(0.0, 2.9, n_points)
+            pts.tofile(info["lidar_path"])
+            for cam in info["cams"].values():
+                small = Image.fromarray(rng.randint(0, 256, (90, 160, 3), np.uint8))
+                img_path = root / cam["filename"]
+                small.resize((1600, 900), Image.BILINEAR).save(img_path, quality=90)
+                n_files += 1
+                n_bytes += img_path.stat().st_size
+    return {"jpegs": n_files, "jpeg_mb": n_bytes / 2 ** 20, "lidar_points": n_points,
+            "write_s": time.perf_counter() - t}
+
+
+@contextlib.contextmanager
+def traced_trainer(record: dict):
+    """Wrap the Trainer's epoch, validation and checkpoint methods for the
+    duration: host seconds up to a synchronize, B1 launches inside each
+    call, checkpoint sizes, and a snapshot of the state just after each
+    restore."""
+    names = ("train_one_epoch", "evaluate", "save_checkpoint", "load_checkpoint")
+    orig = {n: getattr(Trainer, n) for n in names}
+
+    def wrap(name):
+        def inner(self, *args, **kwargs):
+            b1 = pf.pointnet_fused.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig[name](self, *args, **kwargs)
+            torch.cuda.synchronize()
+            entry = {"s": time.perf_counter() - t, "b1_launches": pf.pointnet_fused.launches - b1}
+            if name.endswith("checkpoint"):
+                entry["bytes"] = Path(args[0]).stat().st_size
+            if name == "load_checkpoint":
+                entry["state"] = trainer_state(self)
+                entry["epoch"] = out
+            record.setdefault(name, []).append(entry)
+            return out
+        return inner
+
+    for n in names:
+        setattr(Trainer, n, wrap(n))
+    try:
+        yield record
+    finally:
+        for n, fn in orig.items():
+            setattr(Trainer, n, fn)
+
+
+def trainer_state(trainer) -> dict:
+    """Parameters, BatchNorm statistics, optimizer state (AdamW moments and
+    counts, in the checkpoint's JAX layout) and the step count, on the host."""
+    return {"variables": export_jax_variables(trainer.model),
+            "opt_state": opt_state_to_jax(trainer.optimizer, trainer.model),
+            "step": trainer.step, "updates": trainer.optimizer.updates}
+
+
+def tree_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        if not tree:
+            yield prefix, None
+        for k, v in tree.items():
+            yield from tree_leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def assert_states_equal(got: dict, want: dict) -> int:
+    """Bit for bit, with the same keys; returns the number of arrays."""
+    if (got["step"], got["updates"]) != (want["step"], want["updates"]):
+        raise AssertionError(f"restored counts {got['step'], got['updates']} != saved {want['step'], want['updates']}")
+    n = 0
+    for part in ("variables", "opt_state"):
+        g, w = dict(tree_leaves(got[part])), dict(tree_leaves(want[part]))
+        if set(g) != set(w):
+            raise AssertionError(f"restored {part} keys differ: {sorted(set(g) ^ set(w))[:5]}")
+        for k, a in w.items():
+            b = g[k]
+            if a is None and b is None:
+                continue
+            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"restored {part}/{'/'.join(k)} differs from the saved value")
+            n += 1
+    return n
+
+
+def check_report(path: Path) -> dict:
+    """metrics_output.txt in the JAX package's report format
+    (utils/metrics.py:save_and_print_metrics)."""
+    lines = path.read_text().splitlines()
+    want = ["===== Evaluation Metrics =====", r"mAP : \d\.\d{4}", r"NDS : \d\.\d{4}", "", "--- AP Per Class ---",
+            *(re.escape(f"{c:20s}") + r": \d\.\d{4}" for c in REPORT_CLASSES)]
+    if len(lines) != len(want) or not all(re.fullmatch(w, ln) for w, ln in zip(want, lines)):
+        raise AssertionError(f"{path} is not the JAX report format:\n" + "\n".join(lines))
+    return {"mAP": float(lines[1].split(":")[1]), "NDS": float(lines[2].split(":")[1])}
+
+
+def training_entry_point(config) -> dict:
+    """Phase 11: `train_detect.main` on a synthetic nuScenes tree at full
+    width on the card (one epoch; then a resume into a second), keep_last,
+    the metrics report, and `best_model.msgpack` served by
+    `InferenceServer(model_path=)` against the Trainer's own f32 eval step."""
+    out = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        data = tmp / "nuscenes"
+        # Q5 (base.yaml) parses the 5-float records as 4 floats: 60,000
+        # points put ~47,000 misparsed records in range (40,000 would give
+        # ~31,000), so the native subsample to 35,000 runs either way
+        out["data"] = write_nuscenes_tree(data, config, train=8, val=4, n_points=60_000)
+        log(f"  wrote {out['data']['jpegs']} JPEGs ({out['data']['jpeg_mb']:.1f} MB) and 12 LiDAR bins "
+            f"in {out['data']['write_s']:.1f} s")
+        cfg = copy.deepcopy(config)
+        cfg["dataset"]["data_root"] = str(data)
+        cfg["train"]["checkpoint"].update(save_dir=str(tmp / "checkpoints"), save_interval=1)
+        cfg["train"]["logging"]["log_dir"] = str(tmp / "logs")
+        cfg["train"]["num_epochs"] = 1
+        ts, compat = TrainSpec.from_config(cfg), CompatFlags.from_config(cfg)
+        spec = DetectorSpec.from_config(cfg)
+
+        # the loader alone: decode + resize + LiDAR prep + collate per batch
+        train_ds = NuScenesDataset(split="train", config=cfg, seed=ts.seed, emit_uint8=True)
+        if not (train_ds[0]["lidar_points"] != 0).any(axis=1).all():
+            raise AssertionError("the LiDAR cloud was not subsampled to max_points")
+        loader_ms = []
+        t = time.perf_counter()
+        for _ in DataLoader(train_ds, batch_size=ts.batch_size, prefetch=0):
+            loader_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+        out["loader_ms_per_batch"] = loader_ms
+
+        os.chdir(tmp)  # metrics_output.txt goes to the working directory, as in the JAX CLI
+        try:
+            record = {}
+            pf.pointnet_fused.launches = 0
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with traced_trainer(record):
+                t = time.perf_counter()
+                first = train_detect.main(config=cfg, device="cuda")
+                out["run1_s"] = time.perf_counter() - t
+                saved = trainer_state(first)
+                del first
+                torch.cuda.empty_cache()
+                cfg2 = copy.deepcopy(cfg)
+                cfg2["train"]["num_epochs"] = 2
+                cfg2["train"]["resume"]["enable"] = True
+                t = time.perf_counter()
+                second = train_detect.main(config=cfg2, device="cuda")
+                out["run2_s"] = time.perf_counter() - t
+            launches = pf.pointnet_fused.launches
+            out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            del second
+            torch.cuda.empty_cache()
+            report = check_report(tmp / "metrics_output.txt")
+        finally:
+            os.chdir(cwd)
+
+        restored = record["load_checkpoint"]
+        if len(restored) != 1 or restored[0]["epoch"] != 0:
+            raise AssertionError(f"the resumed run did not restore epoch 0: {restored}")
+        n_arrays = assert_states_equal(restored[0]["state"], saved)
+        log_lines = [json.loads(s) for s in (tmp / "logs" / "train_log.jsonl").read_text().splitlines()]
+        steps_per_epoch = 8 // ts.batch_size
+        if [ln["step"] for ln in log_lines] != list(range(1, 2 * steps_per_epoch + 1)):
+            raise AssertionError(f"steps logged {[ln['step'] for ln in log_lines]}: the resume did not start at epoch 1")
+        if any(set(ln) != JAX_LOG_KEYS for ln in log_lines):
+            raise AssertionError(f"train_log.jsonl keys {sorted(log_lines[0])} != the JAX keys {sorted(JAX_LOG_KEYS)}")
+        losses = [ln["total_loss"] for ln in log_lines]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite losses {losses}")
+        files = sorted(p.name for p in (tmp / "checkpoints").iterdir())
+        if files != ["best_model.msgpack", "checkpoint_epoch_1.msgpack"]:
+            raise AssertionError(f"after keep_last 1 the checkpoints are {files}")
+        epochs, evals = record["train_one_epoch"], record["evaluate"]
+        val_batches = (4 + ts.batch_size - 1) // ts.batch_size
+        if any(e["b1_launches"] for e in epochs) or any(e["b1_launches"] != 2 * val_batches for e in evals):
+            raise AssertionError(f"B1 launches: train epochs {[e['b1_launches'] for e in epochs]}, "
+                                 f"validations {[e['b1_launches'] for e in evals]} (want 0 and {2 * val_batches})")
+
+        # serve best_model.msgpack in f32 and hold it to the Trainer's eval step
+        best = str(tmp / "checkpoints" / "best_model.msgpack")
+        val_ds = NuScenesDataset(split="val", config=cfg, seed=ts.seed, emit_uint8=True)
+        samples = [val_ds[i] for i in range(len(val_ds))]
+        server = InferenceServer(config=cfg, model_path=best, batch_size=len(samples), score_threshold=0.0,
+                                 use_bf16=False, fold_bn=False, device="cuda")
+        got = server._run_batch([{k: s[k] for k in ("camera_imgs", "lidar_points", "radar_points")}
+                                 for s in samples])
+        del server
+        trainer = Trainer(MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding),
+                          ts, compat, device="cuda").init_state()
+        trainer.load_checkpoint(best)
+        step = make_eval_step(trainer.model, compat, max_detections=spec.centernet.max_detections,
+                              eval_path_decode=True, device="cuda")
+        want = decode_to_host(step(collate_fn(samples)), score_thresh=0.0)
+        del trainer, step
+        torch.cuda.empty_cache()
+        scale = max(float(np.abs(w["scores"]).max()) for w in want)
+        box_scale = max(float(np.abs(w["boxes"]).max()) for w in want)
+        err = box_err = 0.0
+        for g, w in zip(got, want):
+            if len(g["scores"]) != len(w["scores"]) or not np.array_equal(g["labels"], w["labels"]):
+                raise AssertionError("served and evaluated detection counts or labels differ")
+            err = max(err, float(np.abs(g["scores"] - w["scores"]).max()))
+            box_err = max(box_err, float(np.abs(g["boxes"][:, :7] - w["boxes"]).max()))
+        if err > 1e-4 * scale or box_err > 1e-4 * box_scale:
+            raise AssertionError(f"served detections differ from the eval step's: scores by {err} (scale "
+                                 f"{scale}), boxes by {box_err} (scale {box_scale})")
+
+    eps = [e["s"] for e in epochs]
+    # the per-step log's step_seconds cover H2D copy, forward, backward and
+    # the update up to the loss's host read; the rest of an epoch waits on
+    # the loader's prefetch thread
+    step_s = [sum(ln["step_seconds"] for ln in log_lines[i * steps_per_epoch:(i + 1) * steps_per_epoch])
+              for i in range(2)]
+    out.update({
+        "step_s_per_epoch": step_s, "loader_wait_s_per_epoch": [e - st for e, st in zip(eps, step_s)],
+        "epoch_s": eps, "train_steps_per_s": [steps_per_epoch / s for s in eps],
+        "train_samples_per_s": [steps_per_epoch * ts.batch_size / s for s in eps],
+        "validation_s": [e["s"] for e in evals],
+        "checkpoint_bytes": record["save_checkpoint"][0]["bytes"],
+        "checkpoint_write_s": [e["s"] for e in record["save_checkpoint"]],
+        "checkpoint_read_s": [e["s"] for e in record["load_checkpoint"]],
+        "restored_arrays_bit_exact": n_arrays, "losses": losses, "metrics": report,
+        "b1_launches": launches, "served_score_err": err, "score_scale": scale, "served_box_err": box_err,
+    })
+    log(f"  epochs: {', '.join(f'{s:.2f}' for s in eps)} s (host clock) = "
+        f"{', '.join(f'{v:.2f}' for v in out['train_steps_per_s'])} train steps/s, "
+        f"{', '.join(f'{v:.1f}' for v in out['train_samples_per_s'])} samples/s")
+    log(f"  of each epoch, train steps {', '.join(f'{v:.2f}' for v in step_s)} s (per-step log), "
+        f"waiting on the loader {', '.join(f'{v:.2f}' for v in out['loader_wait_s_per_epoch'])} s")
+    log(f"  loader (decode + LiDAR prep + collate, one thread): "
+        f"{', '.join(f'{v:.0f}' for v in loader_ms)} ms per batch of {ts.batch_size}")
+    log(f"  validation: {', '.join(f'{s:.2f}' for s in out['validation_s'])} s; mAP {report['mAP']:.4f} "
+        f"NDS {report['NDS']:.4f}")
+    log(f"  checkpoint: {out['checkpoint_bytes'] / 2 ** 20:.1f} MiB, write "
+        f"{', '.join(f'{s:.2f}' for s in out['checkpoint_write_s'])} s, read "
+        f"{', '.join(f'{s:.2f}' for s in out['checkpoint_read_s'])} s; restore bit-exact over {n_arrays} arrays")
+    log(f"  peak device memory {out['max_memory_gib']:.2f} GiB; B1 launches {launches} "
+        f"(0 in train epochs, 2 per validation batch); served vs eval step: scores within {err:.2e} "
+        f"(scale {scale:.3f}), boxes within {box_err:.2e}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1159,6 +1471,9 @@ def main() -> int:
     t = time.perf_counter()
     _build.build()
     log(f"  built {', '.join(_build.SOURCES.values())} in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    native.build()
+    log(f"  built the loader's native point prep ({native.SOURCE.name}, g++) in {time.perf_counter() - t:.1f} s")
 
     config = load_config("configs/base.yaml")
     spec = DetectorSpec.from_config(config)
@@ -1220,6 +1535,10 @@ def main() -> int:
     train = train_full_width(config)
     log("  " + json.dumps({"train_full_width": train}))
 
+    log("phase 11: the training entry point at full width (train_detect.main on a nuScenes tree; f32, TF32 off)")
+    entry_point = training_entry_point(config)
+    log("  " + json.dumps({"training_entry_point": entry_point}))
+
     def entry(name, launches, err, t):
         source, replaces = KERNELS[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1233,7 +1552,8 @@ def main() -> int:
              device_ms=lidar_t["device_ms"], radar_device_ms=radar_t["device_ms"],
              radar_ms=radar_t["ms"], radar_plain_ms=radar_t["plain_ms"],
              radar_bound_ms=radar_t["bound_ms"], radar_library_ms=radar_t["library_ms"],
-             geometric_launches=geo["launches"]["pointnet_fused"]),
+             geometric_launches=geo["launches"]["pointnet_fused"],
+             training_entry_point_launches=entry_point["b1_launches"]),
         # launches: phase 7, the geometric eval path
         entry("bev_pool_weighted", geo["launches"]["bev_pool_weighted_rows"],
               pool_err["bev_pool_weighted"], pools["bev_pool_weighted"]),

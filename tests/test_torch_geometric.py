@@ -216,7 +216,10 @@ def test_chunk_plans_and_collate_match_dataset():
                                       gt_velocities=np.zeros((1, 2), np.float32), token="t"))
     want = jax_dataset.collate_fn(samples["jax"])
     got = port_dataset.collate_fn(samples["port"])
-    assert set(got) == {"camera_imgs", "lidar_points", "radar_points", "camera_cells", *CHUNK_KEYS}
+    # the JAX collate's keys: inputs, cells, plans, GT padded to 500 rows, tokens
+    assert set(got) == set(want) == {"camera_imgs", "lidar_points", "radar_points", "camera_cells",
+                                     *CHUNK_KEYS, "gt_boxes", "gt_labels", "gt_velocities", "tokens"}
+    assert got.pop("tokens") == want.pop("tokens") == ["t"] * 3
     for k, v in got.items():
         assert v.dtype == want[k].dtype and np.array_equal(v, want[k]), k
     # one plan per distinct camera, and a repeated calibration reads the cache

@@ -24,8 +24,14 @@ for name in names:
 import importlib.util
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_smoke.py")!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-print(len(names))
+print(" ".join(names))
 """
+# the modules of the training entry point, which must be among them
+TRAINING_MODULES = (
+    "data.converter", "data.dataset", "data.native", "train.checkpoint", "train.loop",
+    "train_detect", "utils.box_geometry", "utils.convert", "utils.metrics", "utils.restore",
+    "utils.torch_convert",
+)
 
 
 def test_port_imports_without_jax():
@@ -34,7 +40,9 @@ def test_port_imports_without_jax():
         timeout=120, cwd=str(ROOT),
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 28  # every module was imported
+    imported = set(proc.stdout.splitlines()[-1].split())
+    assert len(imported) >= 36  # every module was imported
+    assert {f"{PORT}.{m}" for m in TRAINING_MODULES} <= imported
 
 
 @pytest.mark.parametrize("config", ["base.yaml", "bev100.yaml", "base.yaml:geometric", "base.yaml:train"])
@@ -56,7 +64,7 @@ def test_config_parsing_matches_jax(config):
         cfg["train"]["gradient_accumulation"] = {"enable": True, "steps": 3}
         train = port_config.TrainSpec.from_config(cfg)
         assert train.mixed_precision and train.grad_accum_steps == 3 and train.loss_weights[2] != 1.0
-    for name in ("DetectorSpec", "CompatFlags", "TrainSpec"):
+    for name in ("DetectorSpec", "CompatFlags", "TrainSpec", "DataSpec"):
         port = getattr(port_config, name).from_config(cfg)
         ref = getattr(jax_config, name).from_config(cfg)
         assert dataclasses.asdict(port) == dataclasses.asdict(ref), name
