@@ -1,9 +1,12 @@
-"""Synthetic nuScenes info files and the quaternion helper.
+"""Synthetic nuScenes info files and the quaternion helpers.
 
 The port's own copies from
 ``bevfusion_multimodal_3d_object_detection_tpu/data/converter.py``:
 
-- `quat_rotation_matrix` (``:79-88``);
+- `quat_normalize`, `quat_inverse`, `quat_multiply`, `quat_rotation_matrix`
+  and `quat_yaw` (``:56-93``), quaternions [w, x, y, z] as nuScenes stores
+  them;
+- `sensor_to_global` (``:523-532``);
 - `write_synthetic_infos` (``:436-515``): ``nuscenes_infos_{split}.pkl``
   files of the converter's schema with seeded GT boxes and no sensor files;
   the same seed and directory give infos equal, value for value, to the JAX
@@ -16,17 +19,39 @@ from __future__ import annotations
 
 import pickle
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from ..config import CAMERA_ORDER, DEFAULT_CLASSES, RADAR_ORDER
 
 
+def quat_normalize(q: np.ndarray) -> np.ndarray:
+    return q / np.linalg.norm(q)
+
+
+def quat_inverse(q: np.ndarray) -> np.ndarray:
+    """Inverse of a unit quaternion [w, x, y, z] = conjugate."""
+    q = quat_normalize(np.asarray(q, np.float64))
+    return np.array([q[0], -q[1], -q[2], -q[3]])
+
+
+def quat_multiply(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    w1, x1, y1, z1 = a
+    w2, x2, y2, z2 = b
+    return np.array(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ]
+    )
+
+
 def quat_rotation_matrix(q: Sequence[float]) -> np.ndarray:
     """[w, x, y, z] quaternion (normalized here) -> (3, 3) rotation."""
-    q = np.asarray(q, np.float64)
-    w, x, y, z = q / np.linalg.norm(q)
+    w, x, y, z = quat_normalize(np.asarray(q, np.float64))
     return np.array(
         [
             [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
@@ -34,6 +59,23 @@ def quat_rotation_matrix(q: Sequence[float]) -> np.ndarray:
             [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
         ]
     )
+
+
+def quat_yaw(q: np.ndarray) -> float:
+    """Yaw of [w, x, y, z] (pyquaternion yaw_pitch_roll convention)."""
+    w, x, y, z = quat_normalize(np.asarray(q, np.float64))
+    return float(np.arctan2(2 * (w * z - x * y), 1 - 2 * (y * y + z * z)))
+
+
+def sensor_to_global(pose: Dict, calib: Dict):
+    """Compose sensor->ego->global into (R, t) from {'rotation': quat,
+    'translation': xyz} dicts (nuScenes convention)."""
+    r_ego = quat_rotation_matrix(pose["rotation"])
+    t_ego = np.asarray(pose["translation"], np.float64)
+    r_sens = quat_rotation_matrix(calib["rotation"])
+    t_sens = np.asarray(calib["translation"], np.float64)
+    # x_global = r_ego @ (r_sens @ x + t_sens) + t_ego
+    return r_ego @ r_sens, r_ego @ t_sens + t_ego
 
 
 def write_synthetic_infos(

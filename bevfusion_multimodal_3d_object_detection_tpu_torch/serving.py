@@ -1,7 +1,7 @@
-"""Batched inference server on one GPU.
+"""Batched inference server on one GPU, and its HTTP front end.
 
-Port of ``bevfusion_multimodal_3d_object_detection_tpu/serving.py:41-515``
-(without the mesh and AOT options, and without the HTTP front end):
+Port of ``bevfusion_multimodal_3d_object_detection_tpu/serving.py:41-648``
+(without the mesh and AOT options, ROADMAP A13 and A12):
 
 - one forward + decode function over a fixed `batch_size`; partial batches
   are padded and the padding rows dropped on the way out;
@@ -14,7 +14,9 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/serving.py:41-515``
 - a two-stage pipeline: batch N+1 is staged and enqueued while batch N's
   small results copy to pinned host memory behind an event;
 - per-request futures; `stop()` fails queued requests with
-  `ServerStoppedError`.
+  `ServerStoppedError`;
+- `make_http_server`: a stdlib ThreadingHTTPServer around a server
+  (``/healthz``, ``/stats``, ``POST /infer`` in npz or JSON).
 
 Weights come from `model_path=` (a msgpack checkpoint of either package;
 a failed restore raises), from `variables=` (the JAX model's ``{"params",
@@ -25,9 +27,12 @@ pretrained camera trunk where one is configured and present).
 
 from __future__ import annotations
 
+import io
+import json
 import queue
 import threading
 import time
+import zipfile
 from concurrent.futures import Future
 from typing import Dict, List, Optional
 
@@ -328,3 +333,117 @@ class InferenceServer:
     def _run_batch(self, samples: List[Dict]) -> List[Dict]:
         """Synchronous path (warmup, tests, timing): launch + fetch."""
         return self._fetch(self._launch(samples), len(samples))
+
+
+# ---------------------------------------------------------------------------
+# HTTP front end (stdlib http.server)
+# ---------------------------------------------------------------------------
+
+
+def _parse_sample(raw: bytes, ctype: str) -> Dict[str, np.ndarray]:
+    """One request body -> sample dict. uint8 arrays of the npz wire stay
+    uint8 (normalized on the device); everything else becomes float32."""
+    if "npz" in ctype:
+        with np.load(io.BytesIO(raw)) as z:
+            arrays = {k: z[k] for k in z}
+        return {k: v if v.dtype == np.uint8 else v.astype(np.float32, copy=False) for k, v in arrays.items()}
+    return {k: np.asarray(v, np.float32) for k, v in json.loads(raw).items()}
+
+
+def make_http_server(server: InferenceServer, host: str, port: int,
+                     max_request_bytes: int = 64 * 1024 * 1024):
+    """A ThreadingHTTPServer around `server` (started by the caller); port 0
+    binds a free port (``httpd.server_address[1]``).
+
+      GET  /healthz -> {"status": "ok"}
+      GET  /stats   -> the server's request/batch/latency counters, the
+                       uptime and the mean request latency
+      POST /infer   -> one sample as application/x-npz (np.savez of
+                       camera_imgs, lidar_points, radar_points) or
+                       application/json (the same keys as nested lists);
+                       answers {"boxes": (K, 9) [x y z w l h yaw vx vy],
+                       "scores": (K,), "labels": (K,)} as JSON lists.
+
+    A Content-Length above `max_request_bytes` (64 MiB by default, ~10x a
+    uint8 tri-modal sample) gets 413 without the body being read. A body
+    that does not parse or does not fit the model's shapes gets 400; a
+    fault while the request runs gets 500, a stopped or draining server
+    503 and a request that timed out 504 (it was accepted, so the client
+    does not retry it). Concurrent requests coalesce into device batches
+    through the server's dispatch thread."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    t_start = time.time()
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # quiet by default
+            pass
+
+        def _reply(self, code: int, payload: Dict) -> None:
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._reply(200, {"status": "ok"})
+            elif self.path == "/stats":
+                st = dict(server.stats)
+                st["uptime_s"] = time.time() - t_start
+                if st["requests"]:
+                    st["mean_latency_s"] = st["total_latency_s"] / st["requests"]
+                self._reply(200, st)
+            else:
+                self._reply(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):
+            if self.path != "/infer":
+                self._reply(404, {"error": f"no route {self.path}"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+            except ValueError:
+                n = -1
+            if n < 0:  # a negative length would read until the client closes
+                self._reply(400, {"error": "bad Content-Length"})
+                return
+            if n > max_request_bytes:
+                self._reply(413, {"error": f"request too large: {n} > {max_request_bytes} bytes"})
+                return
+            raw = self.rfile.read(n)
+            try:
+                sample = _parse_sample(raw, self.headers.get("Content-Type", "application/json"))
+                fut = server.submit(sample)  # checks the keys and shapes
+            except ServerStoppedError:
+                self._reply(503, {"error": "server unavailable"})
+                return
+            except (ValueError, KeyError, TypeError, AttributeError, zipfile.BadZipFile, OSError) as e:
+                # a client fault: the body does not parse or does not fit
+                # the model (JSONDecodeError is a ValueError)
+                self._reply(400, {"error": f"{type(e).__name__}: {e}"})
+                return
+            try:
+                res = fut.result(timeout=120.0)
+            except TimeoutError:
+                self._reply(504, {"error": "inference timed out"})
+                return
+            except ServerStoppedError:
+                self._reply(503, {"error": "server unavailable"})
+                return
+            except Exception:
+                # a fault inside the server, whatever its type: no internals
+                # leak to the client
+                self._reply(500, {"error": "internal error"})
+                return
+            self._reply(200, {"boxes": res["boxes"].tolist(), "scores": res["scores"].tolist(),
+                              "labels": res["labels"].tolist()})
+
+    class Server(ThreadingHTTPServer):
+        # the listen backlog: socketserver's 5 drops the connections of a
+        # burst of concurrent clients, whose kernels retry them after ~1 s
+        request_queue_size = 128
+
+    return Server((host, port), Handler)

@@ -1,7 +1,8 @@
 """Training CLI of the port: the surface of the root ``train_detect.py``
-(``:22-314``), on one GPU:
+(``:22-351``), on one GPU:
 
   python -m bevfusion_multimodal_3d_object_detection_tpu_torch.train_detect train [config.yaml]
+  python -m bevfusion_multimodal_3d_object_detection_tpu_torch.train_detect infer [checkpoint]
 
 Loads the nuScenes infos of ``dataset.data_root`` (uint8 camera wire),
 trains ``train.num_epochs`` epochs with a per-step JSONL log in
@@ -13,8 +14,10 @@ trains ``train.num_epochs`` epochs with a per-step JSONL log in
 checkpoint. The checkpoints are the JAX package's format both ways.
 
 `main(config_path, device=None, config=None)` runs the same from Python
-(`device="cpu"` for the CPU). Not ported: ``debug.profile`` (ROADMAP A12),
-``parallel.*`` (A13) and the ``infer`` subcommand (A6); each raises.
+(`device="cpu"` for the CPU). ``infer`` runs `inference`: the first val
+sample of ``./data/nuscenes`` through the `InferenceEngine` on
+``configs/base.yaml``, without the figure. Not ported: ``debug.profile``
+(ROADMAP A12) and ``parallel.*`` (A13); each raises.
 """
 
 from __future__ import annotations
@@ -144,11 +147,21 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
     return trainer
 
 
+def inference(model_path: str, data_root: str = "./data/nuscenes", device=None) -> Dict:
+    """Quick single-sample inference; returns `run_inference`'s result."""
+    from .inference_engine import InferenceEngine
+
+    engine = InferenceEngine(model_path=model_path, device=device)
+    ds = NuScenesDataset(data_root=data_root, split="val")
+    return engine.run_inference(ds[0], visualize=False)
+
+
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "train":
         main(sys.argv[2] if len(sys.argv) > 2 else None)
     elif len(sys.argv) > 1 and sys.argv[1] == "infer":
-        raise SystemExit("train_detect infer is not ported yet (ROADMAP A6)")
+        inference(sys.argv[2] if len(sys.argv) > 2 else "./checkpoints/best_model.msgpack")
     else:
         print("Usage:")
         print("  python -m bevfusion_multimodal_3d_object_detection_tpu_torch.train_detect train [config.yaml]")
+        print("  python -m bevfusion_multimodal_3d_object_detection_tpu_torch.train_detect infer [checkpoint]")

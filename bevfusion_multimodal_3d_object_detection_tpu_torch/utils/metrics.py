@@ -14,9 +14,9 @@ itself a port of the reference metric stack (ref: utils_v2.py):
   (utils_v2.py:189-199), not the official nuScenes NDS;
 - quirk Q9: per-class rows in the reference's report order
   (`report_class_order="reference"`) or the label order (``"dataset"``);
-- `save_and_print_metrics`: the reference's report text.
-
-`compute_metrics_official` comes with ``eval.py`` (ROADMAP A6).
+- `save_and_print_metrics`: the reference's report text;
+- `compute_metrics_official` (``:258-440``): the official-style nuScenes
+  protocol that ``metrics.use_official`` turns on in the eval CLI.
 """
 
 from __future__ import annotations
@@ -222,3 +222,167 @@ def save_and_print_metrics(
     with open(save_path, "w") as f:
         f.write("\n".join(lines) + "\n")
     print(f"\nMetrics saved to {save_path}")
+
+
+# ---------------------------------------------------------------------------
+# Official-style nuScenes metrics (metrics.use_official)
+# ---------------------------------------------------------------------------
+
+
+def _class_sample_data(predictions, ground_truths, cls):
+    """Per-sample data of one class, shared by every distance threshold:
+    score-sorted predictions, center-distance matrices and velocities."""
+    data = []
+    total_gt = 0
+    for pred, gt in zip(predictions, ground_truths):
+        gt_boxes = np.asarray(gt["boxes"])
+        gt_labels = np.asarray(gt["labels"])
+        keep = gt_labels >= 0
+        gt_boxes, gt_labels = gt_boxes[keep], gt_labels[keep]
+        sel = gt_labels == cls
+        cls_gts = gt_boxes[sel]
+        gt_vel = None
+        if "velocities" in gt:
+            gt_vel = np.asarray(gt["velocities"])[keep][sel]
+        total_gt += len(cls_gts)
+
+        p_mask = np.asarray(pred["labels"]) == cls
+        cls_preds = np.asarray(pred["boxes"])[p_mask]
+        cls_scores = np.asarray(pred["scores"])[p_mask]
+        pred_vel = None
+        if "velocities" in pred:
+            pred_vel = np.asarray(pred["velocities"])[p_mask]
+        order = np.argsort(-cls_scores)
+        cls_preds, cls_scores = cls_preds[order], cls_scores[order]
+        if pred_vel is not None:
+            pred_vel = pred_vel[order]
+
+        if len(cls_preds) and len(cls_gts):
+            dists = np.hypot(
+                cls_preds[:, None, 0] - cls_gts[None, :, 0],
+                cls_preds[:, None, 1] - cls_gts[None, :, 1],
+            )
+        else:
+            dists = np.zeros((len(cls_preds), len(cls_gts)))
+        data.append((cls_preds, cls_scores, cls_gts, pred_vel, gt_vel, dists))
+    return data, total_gt
+
+
+def _global_class_matches(data, threshold):
+    """Greedy score-ordered matching at one threshold (the official
+    protocol; the reference averages per-sample APs instead). Rows of
+    (score, is_tp, ate, ase, aoe, ave or None); ave is None when either
+    side has no velocities, so mAVE stays at its worst value."""
+    rows = []
+    for cls_preds, cls_scores, cls_gts, pred_vel, gt_vel, dists in data:
+        taken = np.zeros(len(cls_gts), dtype=bool)
+        for pi in range(len(cls_preds)):
+            best_gi = -1
+            if len(cls_gts):
+                masked = np.where(taken, np.inf, dists[pi])
+                gi = int(np.argmin(masked))
+                if masked[gi] <= threshold:
+                    best_gi = gi
+            if best_gi >= 0:
+                taken[best_gi] = True
+                pb, gb = cls_preds[pi], cls_gts[best_gi]
+                # ASE = 1 - IoU of the size-aligned boxes, intersection over
+                # union as the devkit's scale_iou
+                inter = float(np.prod(np.minimum(pb[3:6], gb[3:6])))
+                union = float(np.prod(pb[3:6]) + np.prod(gb[3:6]) - inter)
+                iou = inter / max(union, 1e-9)
+                ang = pb[6] - gb[6]
+                aoe = abs(float(np.arctan2(np.sin(ang), np.cos(ang))))
+                ave = None
+                if pred_vel is not None and gt_vel is not None and len(gt_vel):
+                    ave = float(np.linalg.norm(pred_vel[pi] - gt_vel[best_gi]))
+                rows.append((cls_scores[pi], 1, float(dists[pi, best_gi]), 1 - iou, aoe, ave))
+            else:
+                rows.append((cls_scores[pi], 0, 0.0, 0.0, 0.0, None))
+    return rows
+
+
+def _official_ap(rows, total_gt, min_recall=0.1, min_precision=0.1):
+    """nuScenes AP: 101-point interpolated precision without the operating
+    points below 10 % recall or precision, normalized."""
+    if total_gt == 0 or not rows:
+        return 0.0
+    rows = sorted(rows, key=lambda r: -r[0])
+    tp = np.cumsum([r[1] for r in rows])
+    fp = np.cumsum([1 - r[1] for r in rows])
+    recall = tp / total_gt
+    precision = tp / np.maximum(tp + fp, 1e-9)
+    r_grid = np.linspace(0, 1, 101)
+    p_interp = np.interp(r_grid, recall, precision, right=0.0)
+    sel = p_interp[int(round(100 * min_recall)) + 1:]
+    sel = np.maximum(sel - min_precision, 0.0)
+    return float(np.mean(sel) / (1.0 - min_precision))
+
+
+def compute_metrics_official(
+    predictions: List[Dict],
+    ground_truths: List[Dict],
+    num_classes: int = 10,
+    dist_ths=(0.5, 1.0, 2.0, 4.0),
+    tp_threshold: float = 2.0,
+) -> Dict[str, object]:
+    """Official-style nuScenes detection metrics:
+
+    - AP per class averaged over the center-distance thresholds `dist_ths`
+      (``metrics.nuscenes.dist_ths``);
+    - global (cross-sample) precision/recall with 101-point interpolation
+      and the 10 % recall and precision cutoffs;
+    - TP errors (ATE/ASE/AOE/AVE) on the matches at `tp_threshold` (one more
+      matching pass when it is not among `dist_ths`);
+    - NDS = (5 mAP + sum(1 - min(1, mTP))) / 10 with mAAE at its worst value
+      1.0 (no attributes are modelled), and mAVE 1.0 when neither side has
+      velocities.
+
+    AP_per_class is keyed in the label order (`DEFAULT_CLASSES`).
+    """
+    class_aps = []
+    ates, ases, aoes, aves = [], [], [], []
+
+    def collect(rows):
+        for r in rows:
+            if r[1] != 1:
+                continue
+            ates.append(r[2])
+            ases.append(r[3])
+            aoes.append(r[4])
+            if r[5] is not None:
+                aves.append(r[5])
+
+    for cls in range(num_classes):
+        data, total_gt = _class_sample_data(predictions, ground_truths, cls)
+        th_aps = []
+        tp_collected = False
+        for th in dist_ths:
+            rows = _global_class_matches(data, th)
+            th_aps.append(_official_ap(rows, total_gt))
+            if np.isclose(th, tp_threshold):
+                collect(rows)
+                tp_collected = True
+        if not tp_collected:
+            collect(_global_class_matches(data, tp_threshold))
+        class_aps.append(float(np.mean(th_aps)))
+
+    m_ap = float(np.mean(class_aps))
+    m_ate = float(np.mean(ates)) if ates else 1.0
+    m_ase = float(np.mean(ases)) if ases else 1.0
+    m_aoe = float(np.mean(aoes)) if aoes else 1.0
+    m_ave = float(np.mean(aves)) if aves else 1.0
+    m_aae = 1.0  # attributes are not modelled
+
+    tp_scores = [1 - min(1.0, m) for m in (m_ate, m_ase, m_aoe, m_ave, m_aae)]
+    nds = float((5 * m_ap + sum(tp_scores)) / 10.0)
+    return {
+        "mAP": m_ap,
+        "NDS": nds,
+        "mATE": m_ate,
+        "mASE": m_ase,
+        "mAOE": m_aoe,
+        "mAVE": m_ave,
+        "mAAE": m_aae,
+        "AP_per_class": {DEFAULT_CLASSES[i]: class_aps[i] for i in range(num_classes)},
+    }

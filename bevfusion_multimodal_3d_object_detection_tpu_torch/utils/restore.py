@@ -3,9 +3,10 @@
 Port of ``bevfusion_multimodal_3d_object_detection_tpu/utils/restore.py:18-82``:
 build the UNFOLDED model, restore a msgpack checkpoint (either package's)
 into its tree, or without one seed it and load the pretrained camera trunk
-where configured, and fold the camera BatchNorms when asked. A failed
-restore raises; it never falls back to random weights. Reference-format
-``.pth`` files come with ROADMAP A6.
+where configured, and fold the camera BatchNorms when asked. A ``.pth`` or
+``.pt`` file is a reference-framework torch checkpoint, migrated by
+`utils.reference_convert` over the seeded tree. A failed restore raises; it
+never falls back to random weights.
 """
 
 from __future__ import annotations
@@ -32,9 +33,10 @@ def load_serving_variables(spec, model_path: Optional[str] = None, fold_bn: bool
         maybe_load_pretrained_camera(model, spec)
         variables = export_jax_variables(model)
     elif str(model_path).endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"{model_path}: reference-format torch checkpoints are not ported yet (ROADMAP A6)"
-        )
+        from .reference_convert import load_reference_checkpoint_into
+
+        model.init_weights(torch.Generator().manual_seed(_INIT_SEED))
+        variables = load_reference_checkpoint_into(export_jax_variables(model), model_path)
     else:
         from ..train.checkpoint import fill_kept, load_checkpoint
 

@@ -88,7 +88,24 @@ Phases (any failure raises and the script exits non-zero):
    `InferenceServer(model_path=..., use_bf16=False, fold_bn=False)` must
    agree with the Trainer's own f32 eval step at 1e-4 of the scores'
    scale. Prints epoch, loader, validation and checkpoint times and the
-   peak device memory.
+   peak device memory;
+12. the inference, evaluation and serving entry points on phase 11's tree
+   and best_model.msgpack, each with the B1 launch counter zeroed just
+   before and read just after: the eval CLI (`eval.main`, Q10: the tree's
+   configs/base.yaml, f32, TF32 off, batch 4) with metrics.use_official and
+   metrics.save_submission, checked for the JAX report format of both
+   reports, a schema-valid submission.json and 2 B1 launches per batch;
+   `InferenceEngine` on the card against the CPU (plain B1) on one sample,
+   prediction maps and decoded scores within 1e-4 of each output's scale,
+   then its latency_s over 5 runs and B1's share of it (B1 alone at the
+   engine's f32 shapes, and its bound); the inference CLI with --batch 4
+   and then one sample with --no-show (matplotlib is not installed on the
+   card's machine); `make_http_server` around `InferenceServer(model_path=)`
+   (bf16, folded BN, batch 8): 16 concurrent npz requests through the
+   port's `InferenceClient`, each equal to the in-process `server.infer` of
+   the same sample (scores 1e-4, boxes 1e-3), /stats counting them, 413 on
+   an oversized POST, p50 latency and requests/s; and the serve CLI in a
+   subprocess, SIGTERM with a request in flight: both answered, exit 0.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.
@@ -99,28 +116,37 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import pickle
 import re
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import yaml
 
 from bevfusion_multimodal_3d_object_detection_tpu_torch.config import (
+    DEFAULT_CLASSES,
     CompatFlags,
     DetectorSpec,
     LidarEncoderSpec,
     TrainSpec,
     load_config,
 )
+from bevfusion_multimodal_3d_object_detection_tpu_torch import eval as eval_cli
+from bevfusion_multimodal_3d_object_detection_tpu_torch import inference as inference_cli
 from bevfusion_multimodal_3d_object_detection_tpu_torch import train_detect
+from bevfusion_multimodal_3d_object_detection_tpu_torch.client import WIRE_KEYS, InferenceClient
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data import native
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data.converter import write_synthetic_infos
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import (
@@ -147,7 +173,9 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.preprocess import (
     IMAGENET_STD,
     normalize_images,
 )
-from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import InferenceServer
+from bevfusion_multimodal_3d_object_detection_tpu_torch.inference_engine import InferenceEngine
+from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import InferenceServer, make_http_server
+from bevfusion_multimodal_3d_object_detection_tpu_torch.train import loop as train_loop
 from bevfusion_multimodal_3d_object_detection_tpu_torch.train.loop import (
     Trainer,
     make_eval_step,
@@ -1299,129 +1327,129 @@ def assert_states_equal(got: dict, want: dict) -> int:
     return n
 
 
-def check_report(path: Path) -> dict:
-    """metrics_output.txt in the JAX package's report format
-    (utils/metrics.py:save_and_print_metrics)."""
+def check_report(path: Path, classes=REPORT_CLASSES) -> dict:
+    """A metrics report in the JAX package's format
+    (utils/metrics.py:save_and_print_metrics), classes in `classes`' order."""
     lines = path.read_text().splitlines()
     want = ["===== Evaluation Metrics =====", r"mAP : \d\.\d{4}", r"NDS : \d\.\d{4}", "", "--- AP Per Class ---",
-            *(re.escape(f"{c:20s}") + r": \d\.\d{4}" for c in REPORT_CLASSES)]
+            *(re.escape(f"{c:20s}") + r": \d\.\d{4}" for c in classes)]
     if len(lines) != len(want) or not all(re.fullmatch(w, ln) for w, ln in zip(want, lines)):
         raise AssertionError(f"{path} is not the JAX report format:\n" + "\n".join(lines))
     return {"mAP": float(lines[1].split(":")[1]), "NDS": float(lines[2].split(":")[1])}
 
 
-def training_entry_point(config) -> dict:
+def training_entry_point(config, tmp: Path) -> tuple:
     """Phase 11: `train_detect.main` on a synthetic nuScenes tree at full
     width on the card (one epoch; then a resume into a second), keep_last,
     the metrics report, and `best_model.msgpack` served by
-    `InferenceServer(model_path=)` against the Trainer's own f32 eval step."""
+    `InferenceServer(model_path=)` against the Trainer's own f32 eval step.
+    The tree and the checkpoints stay in `tmp` for phase 12; returns the
+    measurements and the config that points at them."""
     out = {}
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        tmp = Path(tmp)
-        data = tmp / "nuscenes"
-        # Q5 (base.yaml) parses the 5-float records as 4 floats: 60,000
-        # points put ~47,000 misparsed records in range (40,000 would give
-        # ~31,000), so the native subsample to 35,000 runs either way
-        out["data"] = write_nuscenes_tree(data, config, train=8, val=4, n_points=60_000)
-        log(f"  wrote {out['data']['jpegs']} JPEGs ({out['data']['jpeg_mb']:.1f} MB) and 12 LiDAR bins "
-            f"in {out['data']['write_s']:.1f} s")
-        cfg = copy.deepcopy(config)
-        cfg["dataset"]["data_root"] = str(data)
-        cfg["train"]["checkpoint"].update(save_dir=str(tmp / "checkpoints"), save_interval=1)
-        cfg["train"]["logging"]["log_dir"] = str(tmp / "logs")
-        cfg["train"]["num_epochs"] = 1
-        ts, compat = TrainSpec.from_config(cfg), CompatFlags.from_config(cfg)
-        spec = DetectorSpec.from_config(cfg)
+    data = tmp / "nuscenes"
+    # Q5 (base.yaml) parses the 5-float records as 4 floats: 60,000
+    # points put ~47,000 misparsed records in range (40,000 would give
+    # ~31,000), so the native subsample to 35,000 runs either way
+    out["data"] = write_nuscenes_tree(data, config, train=8, val=4, n_points=60_000)
+    log(f"  wrote {out['data']['jpegs']} JPEGs ({out['data']['jpeg_mb']:.1f} MB) and 12 LiDAR bins "
+        f"in {out['data']['write_s']:.1f} s")
+    cfg = copy.deepcopy(config)
+    cfg["dataset"]["data_root"] = str(data)
+    cfg["train"]["checkpoint"].update(save_dir=str(tmp / "checkpoints"), save_interval=1)
+    cfg["train"]["logging"]["log_dir"] = str(tmp / "logs")
+    cfg["train"]["num_epochs"] = 1
+    ts, compat = TrainSpec.from_config(cfg), CompatFlags.from_config(cfg)
+    spec = DetectorSpec.from_config(cfg)
 
-        # the loader alone: decode + resize + LiDAR prep + collate per batch
-        train_ds = NuScenesDataset(split="train", config=cfg, seed=ts.seed, emit_uint8=True)
-        if not (train_ds[0]["lidar_points"] != 0).any(axis=1).all():
-            raise AssertionError("the LiDAR cloud was not subsampled to max_points")
-        loader_ms = []
+    # the loader alone: decode + resize + LiDAR prep + collate per batch
+    train_ds = NuScenesDataset(split="train", config=cfg, seed=ts.seed, emit_uint8=True)
+    if not (train_ds[0]["lidar_points"] != 0).any(axis=1).all():
+        raise AssertionError("the LiDAR cloud was not subsampled to max_points")
+    loader_ms = []
+    t = time.perf_counter()
+    for _ in DataLoader(train_ds, batch_size=ts.batch_size, prefetch=0):
+        loader_ms.append((time.perf_counter() - t) * 1e3)
         t = time.perf_counter()
-        for _ in DataLoader(train_ds, batch_size=ts.batch_size, prefetch=0):
-            loader_ms.append((time.perf_counter() - t) * 1e3)
-            t = time.perf_counter()
-        out["loader_ms_per_batch"] = loader_ms
+    out["loader_ms_per_batch"] = loader_ms
 
-        os.chdir(tmp)  # metrics_output.txt goes to the working directory, as in the JAX CLI
-        try:
-            record = {}
-            pf.pointnet_fused.launches = 0
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            with traced_trainer(record):
-                t = time.perf_counter()
-                first = train_detect.main(config=cfg, device="cuda")
-                out["run1_s"] = time.perf_counter() - t
-                saved = trainer_state(first)
-                del first
-                torch.cuda.empty_cache()
-                cfg2 = copy.deepcopy(cfg)
-                cfg2["train"]["num_epochs"] = 2
-                cfg2["train"]["resume"]["enable"] = True
-                t = time.perf_counter()
-                second = train_detect.main(config=cfg2, device="cuda")
-                out["run2_s"] = time.perf_counter() - t
-            launches = pf.pointnet_fused.launches
-            out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-            del second
-            torch.cuda.empty_cache()
-            report = check_report(tmp / "metrics_output.txt")
-        finally:
-            os.chdir(cwd)
-
-        restored = record["load_checkpoint"]
-        if len(restored) != 1 or restored[0]["epoch"] != 0:
-            raise AssertionError(f"the resumed run did not restore epoch 0: {restored}")
-        n_arrays = assert_states_equal(restored[0]["state"], saved)
-        log_lines = [json.loads(s) for s in (tmp / "logs" / "train_log.jsonl").read_text().splitlines()]
-        steps_per_epoch = 8 // ts.batch_size
-        if [ln["step"] for ln in log_lines] != list(range(1, 2 * steps_per_epoch + 1)):
-            raise AssertionError(f"steps logged {[ln['step'] for ln in log_lines]}: the resume did not start at epoch 1")
-        if any(set(ln) != JAX_LOG_KEYS for ln in log_lines):
-            raise AssertionError(f"train_log.jsonl keys {sorted(log_lines[0])} != the JAX keys {sorted(JAX_LOG_KEYS)}")
-        losses = [ln["total_loss"] for ln in log_lines]
-        if not all(np.isfinite(losses)):
-            raise AssertionError(f"non-finite losses {losses}")
-        files = sorted(p.name for p in (tmp / "checkpoints").iterdir())
-        if files != ["best_model.msgpack", "checkpoint_epoch_1.msgpack"]:
-            raise AssertionError(f"after keep_last 1 the checkpoints are {files}")
-        epochs, evals = record["train_one_epoch"], record["evaluate"]
-        val_batches = (4 + ts.batch_size - 1) // ts.batch_size
-        if any(e["b1_launches"] for e in epochs) or any(e["b1_launches"] != 2 * val_batches for e in evals):
-            raise AssertionError(f"B1 launches: train epochs {[e['b1_launches'] for e in epochs]}, "
-                                 f"validations {[e['b1_launches'] for e in evals]} (want 0 and {2 * val_batches})")
-
-        # serve best_model.msgpack in f32 and hold it to the Trainer's eval step
-        best = str(tmp / "checkpoints" / "best_model.msgpack")
-        val_ds = NuScenesDataset(split="val", config=cfg, seed=ts.seed, emit_uint8=True)
-        samples = [val_ds[i] for i in range(len(val_ds))]
-        server = InferenceServer(config=cfg, model_path=best, batch_size=len(samples), score_threshold=0.0,
-                                 use_bf16=False, fold_bn=False, device="cuda")
-        got = server._run_batch([{k: s[k] for k in ("camera_imgs", "lidar_points", "radar_points")}
-                                 for s in samples])
-        del server
-        trainer = Trainer(MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding),
-                          ts, compat, device="cuda").init_state()
-        trainer.load_checkpoint(best)
-        step = make_eval_step(trainer.model, compat, max_detections=spec.centernet.max_detections,
-                              eval_path_decode=True, device="cuda")
-        want = decode_to_host(step(collate_fn(samples)), score_thresh=0.0)
-        del trainer, step
+    os.chdir(tmp)  # metrics_output.txt goes to the working directory, as in the JAX CLI
+    try:
+        record = {}
+        pf.pointnet_fused.launches = 0
         torch.cuda.empty_cache()
-        scale = max(float(np.abs(w["scores"]).max()) for w in want)
-        box_scale = max(float(np.abs(w["boxes"]).max()) for w in want)
-        err = box_err = 0.0
-        for g, w in zip(got, want):
-            if len(g["scores"]) != len(w["scores"]) or not np.array_equal(g["labels"], w["labels"]):
-                raise AssertionError("served and evaluated detection counts or labels differ")
-            err = max(err, float(np.abs(g["scores"] - w["scores"]).max()))
-            box_err = max(box_err, float(np.abs(g["boxes"][:, :7] - w["boxes"]).max()))
-        if err > 1e-4 * scale or box_err > 1e-4 * box_scale:
-            raise AssertionError(f"served detections differ from the eval step's: scores by {err} (scale "
-                                 f"{scale}), boxes by {box_err} (scale {box_scale})")
+        torch.cuda.reset_peak_memory_stats()
+        with traced_trainer(record):
+            t = time.perf_counter()
+            first = train_detect.main(config=cfg, device="cuda")
+            out["run1_s"] = time.perf_counter() - t
+            saved = trainer_state(first)
+            del first
+            torch.cuda.empty_cache()
+            cfg2 = copy.deepcopy(cfg)
+            cfg2["train"]["num_epochs"] = 2
+            cfg2["train"]["resume"]["enable"] = True
+            t = time.perf_counter()
+            second = train_detect.main(config=cfg2, device="cuda")
+            out["run2_s"] = time.perf_counter() - t
+        launches = pf.pointnet_fused.launches
+        out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del second
+        torch.cuda.empty_cache()
+        report = check_report(tmp / "metrics_output.txt")
+    finally:
+        os.chdir(cwd)
+
+    restored = record["load_checkpoint"]
+    if len(restored) != 1 or restored[0]["epoch"] != 0:
+        raise AssertionError(f"the resumed run did not restore epoch 0: {restored}")
+    n_arrays = assert_states_equal(restored[0]["state"], saved)
+    log_lines = [json.loads(s) for s in (tmp / "logs" / "train_log.jsonl").read_text().splitlines()]
+    steps_per_epoch = 8 // ts.batch_size
+    if [ln["step"] for ln in log_lines] != list(range(1, 2 * steps_per_epoch + 1)):
+        raise AssertionError(f"steps logged {[ln['step'] for ln in log_lines]}: the resume did not start at epoch 1")
+    if any(set(ln) != JAX_LOG_KEYS for ln in log_lines):
+        raise AssertionError(f"train_log.jsonl keys {sorted(log_lines[0])} != the JAX keys {sorted(JAX_LOG_KEYS)}")
+    losses = [ln["total_loss"] for ln in log_lines]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    files = sorted(p.name for p in (tmp / "checkpoints").iterdir())
+    if files != ["best_model.msgpack", "checkpoint_epoch_1.msgpack"]:
+        raise AssertionError(f"after keep_last 1 the checkpoints are {files}")
+    epochs, evals = record["train_one_epoch"], record["evaluate"]
+    val_batches = (4 + ts.batch_size - 1) // ts.batch_size
+    if any(e["b1_launches"] for e in epochs) or any(e["b1_launches"] != 2 * val_batches for e in evals):
+        raise AssertionError(f"B1 launches: train epochs {[e['b1_launches'] for e in epochs]}, "
+                             f"validations {[e['b1_launches'] for e in evals]} (want 0 and {2 * val_batches})")
+
+    # serve best_model.msgpack in f32 and hold it to the Trainer's eval step
+    best = str(tmp / "checkpoints" / "best_model.msgpack")
+    val_ds = NuScenesDataset(split="val", config=cfg, seed=ts.seed, emit_uint8=True)
+    samples = [val_ds[i] for i in range(len(val_ds))]
+    server = InferenceServer(config=cfg, model_path=best, batch_size=len(samples), score_threshold=0.0,
+                             use_bf16=False, fold_bn=False, device="cuda")
+    got = server._run_batch([{k: s[k] for k in ("camera_imgs", "lidar_points", "radar_points")}
+                             for s in samples])
+    del server
+    trainer = Trainer(MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding),
+                      ts, compat, device="cuda").init_state()
+    trainer.load_checkpoint(best)
+    step = make_eval_step(trainer.model, compat, max_detections=spec.centernet.max_detections,
+                          eval_path_decode=True, device="cuda")
+    want = decode_to_host(step(collate_fn(samples)), score_thresh=0.0)
+    del trainer, step
+    torch.cuda.empty_cache()
+    scale = max(float(np.abs(w["scores"]).max()) for w in want)
+    box_scale = max(float(np.abs(w["boxes"]).max()) for w in want)
+    err = box_err = 0.0
+    for g, w in zip(got, want):
+        if len(g["scores"]) != len(w["scores"]) or not np.array_equal(g["labels"], w["labels"]):
+            raise AssertionError("served and evaluated detection counts or labels differ")
+        err = max(err, float(np.abs(g["scores"] - w["scores"]).max()))
+        box_err = max(box_err, float(np.abs(g["boxes"][:, :7] - w["boxes"]).max()))
+    if err > 1e-4 * scale or box_err > 1e-4 * box_scale:
+        raise AssertionError(f"served detections differ from the eval step's: scores by {err} (scale "
+                             f"{scale}), boxes by {box_err} (scale {box_scale})")
 
     eps = [e["s"] for e in epochs]
     # the per-step log's step_seconds cover H2D copy, forward, backward and
@@ -1455,6 +1483,285 @@ def training_entry_point(config) -> dict:
     log(f"  peak device memory {out['max_memory_gib']:.2f} GiB; B1 launches {launches} "
         f"(0 in train epochs, 2 per validation batch); served vs eval step: scores within {err:.2e} "
         f"(scale {scale:.3f}), boxes within {box_err:.2e}")
+    return out, cfg
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def check_submission(path: Path, infos, classes) -> int:
+    """submission.json in the nuScenes schema, one entry list per val
+    sample; returns the number of boxes."""
+    sub = json.loads(path.read_text())
+    if sub["meta"] != {"use_camera": True, "use_lidar": True, "use_radar": True, "use_map": False,
+                       "use_external": False}:
+        raise AssertionError(f"submission meta {sub['meta']}")
+    if list(sub["results"]) != [info["token"] for info in infos]:
+        raise AssertionError(f"submission tokens {list(sub['results'])}")
+    n = 0
+    for token, entries in sub["results"].items():
+        if not 0 < len(entries) <= 500:
+            raise AssertionError(f"{len(entries)} boxes for {token}")
+        for e in entries:
+            ok = (e["sample_token"] == token and e["detection_name"] in classes and e["attribute_name"] == ""
+                  and [len(e[k]) for k in ("translation", "size", "rotation", "velocity")] == [3, 3, 4, 2]
+                  and np.isfinite(e["translation"] + e["size"] + e["rotation"] + e["velocity"]
+                                  + [e["detection_score"]]).all()
+                  and abs(np.linalg.norm(e["rotation"]) - 1.0) < 1e-6)
+            if not ok:
+                raise AssertionError(f"bad submission entry {e}")
+            n += 1
+    return n
+
+
+def by_position(res: dict) -> dict:
+    order = np.lexsort((res["boxes"][:, 1], res["boxes"][:, 0]))
+    return {k: v[order] for k, v in res.items()}
+
+
+def serve_cli_drain(tmp: Path, sample: dict, timeout_s: float = 180.0) -> dict:
+    """The serve CLI in a subprocess (seeded weights, batch 2): a request,
+    then SIGTERM with a second one in its 1 s coalescing window; both must
+    be answered and the process must exit 0."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PORT}.serve", "--config", "configs/base.yaml", "--port", "0",
+         "--batch-size", "2", "--max-delay-ms", "1000"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(tmp), env=env,
+    )
+    lines = []
+    try:
+        # read the output on a thread, so that a server that never listens
+        # fails the phase at the deadline instead of blocking it
+        ready = threading.Event()
+
+        def read():
+            for line in proc.stdout:
+                lines.append(line)
+                if line.startswith("Serving on "):
+                    ready.set()
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        if not ready.wait(timeout_s):
+            raise AssertionError("the serve CLI did not start listening:\n" + "".join(lines))
+        start_s = time.perf_counter() - t0
+        client = InferenceClient(next(ln for ln in lines if ln.startswith("Serving on ")).split()[2],
+                                 retries=0, timeout_s=120)
+        first = client.infer(sample)
+        second = {}
+        t = threading.Thread(target=lambda: second.update(client.infer(sample)))
+        t.start()
+        time.sleep(0.3)  # the request now waits in the coalescing window
+        proc.send_signal(signal.SIGTERM)
+        t.join(timeout=120)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(lines)
+    if rc != 0 or "scores" not in second or "Drained" not in out:
+        raise AssertionError(f"the serve CLI's drain failed (exit {rc}, second answered: {'scores' in second}):\n"
+                             + out)
+    return {"start_s": start_s, "exit_code": rc, "answered": 2,
+            "detections": [len(first["scores"]), len(second["scores"])]}
+
+
+def entry_points(cfg: dict, tmp: Path) -> dict:
+    """Phase 12: the inference, evaluation and serving entry points at full
+    width on phase 11's tree and best_model.msgpack."""
+    out = {}
+    best = tmp / "checkpoints" / "best_model.msgpack"
+    (tmp / "configs").mkdir(exist_ok=True)
+    (tmp / "configs" / "base.yaml").write_text(yaml.safe_dump(cfg))  # Q10: the eval CLI's model config
+    user = copy.deepcopy(cfg)
+    user["metrics"].update(use_official=True, save_submission="submission.json")
+    (tmp / "user.yaml").write_text(yaml.safe_dump(user))
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        # 1. the eval CLI, each eval step timed up to a synchronize
+        batch_s = []
+        make_eval_step = train_loop.make_eval_step
+
+        def timed_make_eval_step(*args, **kwargs):
+            step = make_eval_step(*args, **kwargs)
+
+            def timed(batch):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                result = step(batch)
+                torch.cuda.synchronize()
+                batch_s.append(time.perf_counter() - t)
+                return result
+            return timed
+
+        train_loop.make_eval_step = timed_make_eval_step
+        try:
+            pf.pointnet_fused.launches = 0
+            t = time.perf_counter()
+            metrics = eval_cli.main("user.yaml")
+            out["eval_s"] = time.perf_counter() - t
+            out["eval_launches"] = pf.pointnet_fused.launches
+        finally:
+            train_loop.make_eval_step = make_eval_step
+        out["eval_s_per_batch"] = batch_s
+        report = check_report(tmp / "eval_results" / "eval_metrics_output.txt")
+        official = check_report(tmp / "eval_results" / "eval_metrics_official.txt", DEFAULT_CLASSES)
+        if abs(report["mAP"] - round(metrics["mAP"], 4)) > 1e-9:
+            raise AssertionError(f"the report's mAP {report['mAP']} is not the CLI's {metrics['mAP']}")
+        val_infos = NuScenesDataset(split="val", config=cfg).infos
+        out["submission_boxes"] = check_submission(tmp / "submission.json", val_infos, DEFAULT_CLASSES)
+        if len(batch_s) != 1 or out["eval_launches"] != 2 * len(batch_s):
+            raise AssertionError(f"eval CLI: {len(batch_s)} batches, B1 launches {out['eval_launches']} "
+                                 "(want 1 batch of 4 and 2 launches per batch)")
+        out["eval_metrics"] = {"mAP": report["mAP"], "NDS": report["NDS"], "official_mAP": official["mAP"],
+                               "official_NDS": official["NDS"]}
+
+        # 2. the engine on the card against the CPU (plain B1), f32
+        gpu = InferenceEngine(model_path=str(best), config=cfg)
+        cpu = InferenceEngine(model_path=str(best), config=cfg, device="cpu")
+        sample = NuScenesDataset(split="val", config=cfg, seed=0)[0]
+        pf.pointnet_fused.launches = 0
+        preds_g, dec_g = gpu._forward(sample)
+        torch.cuda.synchronize()
+        forward_launches = pf.pointnet_fused.launches
+        preds_c, dec_c = cpu._forward(sample)
+        del cpu
+        errs = {}
+        for k, want in list(preds_c.items()) + [("decoded_scores", dec_c["scores"])]:
+            got = (preds_g[k] if k in preds_g else dec_g["scores"]).float().cpu()
+            scale = max(want.abs().max().item(), 1e-30)
+            errs[k] = {"max_abs_err": (got - want).abs().max().item(), "scale": scale}
+            if not errs[k]["max_abs_err"] <= 1e-4 * scale:
+                raise AssertionError(f"engine card vs CPU: {k} differs by {errs[k]} (limit 1e-4 of the scale)")
+        out["engine_card_vs_cpu"] = errs
+        pf.pointnet_fused.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):  # each run prints its detections
+            runs = [gpu.run_inference(sample, visualize=False) for _ in range(6)]
+        out["engine_launches"] = forward_launches + pf.pointnet_fused.launches
+        if forward_launches != 2 or pf.pointnet_fused.launches != 12:
+            raise AssertionError(f"engine B1 launches {forward_launches}, {pf.pointnet_fused.launches} (want 2, 12)")
+        latency = [r["latency_s"] for r in runs[1:]]
+        out["engine_latency_s"] = latency
+        # B1 alone at the engine's shapes through its wrapper, f32 batch 1
+        lidar = chain_args(gpu.model.lidar_encoder, sample["lidar_points"][None], torch.float32, "cuda")
+        radar = chain_args(gpu.model.radar_encoder.shared_radar, sample["radar_points"], torch.float32, "cuda")
+        b1_ms = {"lidar_1x35000": time_ms(lambda: pf.pointnet_fused(*lidar)),
+                 "radar_5x125": time_ms(lambda: pf.pointnet_fused(*radar))}
+        flops = sum(pf.pointnet_flops(x.shape[0], x.shape[1], [x.shape[2]] + [wi.shape[1] for wi in w])
+                    for x, w, _ in (lidar, radar))
+        nbytes = sum(x.numel() * 4 + sum(wi.numel() * 4 + bi.numel() * 4 for wi, bi in zip(w, b))
+                     + x.shape[0] * w[-1].shape[1] * 4 for x, w, b in (lidar, radar))
+        out["engine_b1_ms"] = b1_ms
+        out["engine_b1_bound_ms"] = max(flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES) * 1e3
+        out["engine_b1_gflop"] = flops / 1e9
+        out["engine_b1_share"] = sum(b1_ms.values()) / (float(np.median(latency)) * 1e3)
+        del gpu, lidar, radar
+        torch.cuda.empty_cache()
+
+        # 3. the inference CLI: --batch 4, then one sample. matplotlib is
+        # not installed on the card's machine, so the figure is never drawn
+        # here (--no-show)
+        pf.pointnet_fused.launches = 0
+        args = ["--model", str(best), "--config", "configs/base.yaml", "--split", "val",
+                "--save-dir", "inference_results"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            t = time.perf_counter()
+            summary = inference_cli.main(args + ["--batch", "4"])
+            out["inference_cli_batch_s"] = time.perf_counter() - t
+            one = inference_cli.main(args + ["--sample-idx", "1", "--no-show"])
+        out["inference_cli_launches"] = pf.pointnet_fused.launches
+        written = sorted(p.name for p in (tmp / "inference_results").glob("predictions_*.json"))
+        if summary["num_samples"] != 4 or len(written) != 4 or "figure_path" in one \
+                or out["inference_cli_launches"] != 10:
+            raise AssertionError(f"inference CLI: {summary}, wrote {written}, "
+                                 f"B1 launches {out['inference_cli_launches']} (want 10)")
+        out["inference_cli_samples_per_s"] = summary["samples_per_sec"]
+        out["inference_cli_mean_latency_s"] = summary["mean_latency_s"]
+
+        # 4. HTTP serving in process: bf16, folded BN, batch 8
+        val_u8 = NuScenesDataset(split="val", config=cfg, seed=0, emit_uint8=True)
+        samples = [{k: val_u8[i][k] for k in WIRE_KEYS} for i in range(4)]
+        server = InferenceServer(config=cfg, model_path=str(best), score_threshold=0.0).start()
+        httpd = make_http_server(server, "127.0.0.1", 0)
+        serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+        serving.start()
+        try:
+            client = InferenceClient(f"http://127.0.0.1:{httpd.server_address[1]}", retries=0)
+            want = [server.infer(s, timeout=120) for s in samples]
+            client.infer(samples[0])  # one request through the socket before timing
+
+            def timed_infer(i):
+                t = time.perf_counter()
+                res = client.infer(samples[i % 4])
+                return res, time.perf_counter() - t
+
+            n = 16
+            pf.pointnet_fused.launches = 0
+            t = time.perf_counter()
+            with ThreadPoolExecutor(n) as pool:
+                answered = list(pool.map(timed_infer, range(n)))
+            wall = time.perf_counter() - t
+            out["http_launches"] = pf.pointnet_fused.launches
+            for i, (res, _) in enumerate(answered):
+                g, w = by_position(res), by_position(want[i % 4])
+                if len(g["scores"]) != len(w["scores"]) or not np.array_equal(g["labels"], w["labels"]) \
+                        or np.abs(g["scores"] - w["scores"]).max() > 1e-4 \
+                        or np.abs(g["boxes"] - w["boxes"]).max() > 1e-3:
+                    raise AssertionError(f"HTTP answer {i} differs from the in-process server.infer")
+            stats = client.stats()
+            if stats["requests"] != 4 + 1 + n or out["http_launches"] <= 0:
+                raise AssertionError(f"/stats counts {stats['requests']} requests (want {4 + 1 + n}); "
+                                     f"B1 launches {out['http_launches']}")
+            import http.client
+
+            conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=30)
+            conn.putrequest("POST", "/infer")
+            conn.putheader("Content-Type", "application/x-npz")
+            conn.putheader("Content-Length", str(2 ** 30))  # no body follows
+            conn.endheaders()
+            status = conn.getresponse().status
+            conn.close()
+            if status != 413:
+                raise AssertionError(f"an oversized POST got {status}, not 413")
+            lat = sorted(s for _, s in answered)
+            out.update({"http_requests": n, "http_batches": stats["batches"], "http_p50_s": float(np.median(lat)),
+                        "http_max_s": lat[-1], "http_requests_per_s": n / wall})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.stop()
+        del server
+        torch.cuda.empty_cache()
+
+        # 5. the serve CLI's SIGTERM drain
+        out["drain"] = serve_cli_drain(tmp, samples[0])
+    finally:
+        os.chdir(cwd)
+
+    where = card()
+    log(f"  eval CLI: {out['eval_s']:.2f} s in all, {', '.join(f'{s:.3f}' for s in batch_s)} s per batch of 4 "
+        f"(f32, TF32 off); mAP {report['mAP']:.4f} NDS {report['NDS']:.4f}, official mAP {official['mAP']:.4f}; "
+        f"{out['submission_boxes']} submission boxes; B1 launches {out['eval_launches']} [{where}]")
+    log(f"  engine: latency_s median {np.median(latency):.4f} s (runs {', '.join(f'{v:.4f}' for v in latency)}); "
+        f"B1 {b1_ms['lidar_1x35000']:.4f} + {b1_ms['radar_5x125']:.4f} ms f32 = "
+        f"{100 * out['engine_b1_share']:.1f}% of it (bound {out['engine_b1_bound_ms']:.4f} ms); card vs CPU "
+        f"heatmap within {errs['heatmap']['max_abs_err']:.2e} [{where}]")
+    log(f"  inference CLI: {out['inference_cli_samples_per_s']:.2f} samples/s over 4 (batch 1, f32); "
+        f"B1 launches {out['inference_cli_launches']} [{where}]")
+    log(f"  HTTP: {n} concurrent npz requests, p50 {out['http_p50_s'] * 1e3:.1f} ms, max "
+        f"{out['http_max_s'] * 1e3:.1f} ms, {out['http_requests_per_s']:.2f} requests/s in {stats['batches']} "
+        f"batches so far (bf16, batch 8); B1 launches {out['http_launches']}; 413 on an oversized POST [{where}]")
+    log(f"  serve CLI: listening after {out['drain']['start_s']:.1f} s; SIGTERM with a request in flight: both "
+        f"answered, exit {out['drain']['exit_code']}")
     return out
 
 
@@ -1535,9 +1842,15 @@ def main() -> int:
     train = train_full_width(config)
     log("  " + json.dumps({"train_full_width": train}))
 
-    log("phase 11: the training entry point at full width (train_detect.main on a nuScenes tree; f32, TF32 off)")
-    entry_point = training_entry_point(config)
-    log("  " + json.dumps({"training_entry_point": entry_point}))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
+        log("phase 11: the training entry point at full width (train_detect.main on a nuScenes tree; f32, TF32 off)")
+        entry_point, tree_config = training_entry_point(config, Path(tmp))
+        log("  " + json.dumps({"training_entry_point": entry_point}))
+
+        log("phase 12: the eval, inference and serving entry points at full width (phase 11's tree and "
+            "best_model.msgpack)")
+        entries = entry_points(tree_config, Path(tmp))
+        log("  " + json.dumps({"entry_points": entries}))
 
     def entry(name, launches, err, t):
         source, replaces = KERNELS[name]
@@ -1553,7 +1866,10 @@ def main() -> int:
              radar_ms=radar_t["ms"], radar_plain_ms=radar_t["plain_ms"],
              radar_bound_ms=radar_t["bound_ms"], radar_library_ms=radar_t["library_ms"],
              geometric_launches=geo["launches"]["pointnet_fused"],
-             training_entry_point_launches=entry_point["b1_launches"]),
+             training_entry_point_launches=entry_point["b1_launches"],
+             eval_cli_launches=entries["eval_launches"], engine_launches=entries["engine_launches"],
+             inference_cli_launches=entries["inference_cli_launches"], http_launches=entries["http_launches"],
+             engine_f32_ms=entries["engine_b1_ms"], engine_f32_bound_ms=entries["engine_b1_bound_ms"]),
         # launches: phase 7, the geometric eval path
         entry("bev_pool_weighted", geo["launches"]["bev_pool_weighted_rows"],
               pool_err["bev_pool_weighted"], pools["bev_pool_weighted"]),
@@ -1563,11 +1879,7 @@ def main() -> int:
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -32,6 +32,11 @@ TRAINING_MODULES = (
     "train_detect", "utils.box_geometry", "utils.convert", "utils.metrics", "utils.restore",
     "utils.torch_convert",
 )
+# the modules of the inference, evaluation and serving entry points
+ENTRY_POINT_MODULES = (
+    "client", "eval", "inference", "inference_engine", "serve", "serving", "utils.reference_convert",
+    "utils.submission",
+)
 
 
 def test_port_imports_without_jax():
@@ -41,8 +46,8 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.splitlines()[-1].split())
-    assert len(imported) >= 36  # every module was imported
-    assert {f"{PORT}.{m}" for m in TRAINING_MODULES} <= imported
+    assert len(imported) >= 43  # every module was imported
+    assert {f"{PORT}.{m}" for m in TRAINING_MODULES + ENTRY_POINT_MODULES} <= imported
 
 
 @pytest.mark.parametrize("config", ["base.yaml", "bev100.yaml", "base.yaml:geometric", "base.yaml:train"])

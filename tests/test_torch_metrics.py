@@ -1,6 +1,6 @@
 """The port's metrics against the JAX package's: the same predictions give
 an identical metrics dict and an identical report file, in both class
-orders (quirk Q9)."""
+orders (quirk Q9), and the official-style metrics agree at 1e-12."""
 
 import numpy as np
 import pytest
@@ -55,3 +55,27 @@ def test_empty_predictions_give_the_degenerate_report():
     got = port_metrics.compute_metrics(empty, gts)
     assert got == jax_metrics.compute_metrics(empty, gts)
     assert got["mAP"] == 0.0 and got["mATE"] == got["mASE"] == got["mAOE"] == 1.0
+
+
+@pytest.mark.parametrize("velocities", [False, True])
+@pytest.mark.parametrize("dist_ths,tp_threshold", [((0.5, 1.0, 2.0, 4.0), 2.0), ((1.0, 3.0), 2.0), ((0.5,), 0.5)])
+def test_official_metrics_match_jax(dist_ths, tp_threshold, velocities):
+    """`compute_metrics_official` against the JAX package's at 1e-12: the
+    nuScenes thresholds, custom ones without `tp_threshold` among them (an
+    extra matching pass), and with or without velocities on both sides
+    (mAVE). Both report AP_per_class in the label order."""
+    preds, gts = _case(seed=2, samples=8)
+    if velocities:
+        rng = np.random.RandomState(4)
+        for p, g in zip(preds, gts):
+            p["velocities"] = rng.randn(len(p["boxes"]), 2)
+            g["velocities"] = rng.randn(len(g["boxes"]), 2)
+    got = port_metrics.compute_metrics_official(preds, gts, dist_ths=dist_ths, tp_threshold=tp_threshold)
+    want = jax_metrics.compute_metrics_official(preds, gts, dist_ths=dist_ths, tp_threshold=tp_threshold)
+    assert list(got) == list(want) and list(got["AP_per_class"]) == list(want["AP_per_class"])
+    for k, v in want.items():
+        if k == "AP_per_class":
+            np.testing.assert_allclose(list(got[k].values()), list(v.values()), rtol=0, atol=1e-12)
+        else:
+            assert abs(got[k] - v) <= 1e-12, k
+    assert 0 < got["mAP"] < 1 and got["mATE"] < 1.0 and (got["mAVE"] != 1.0) == velocities
