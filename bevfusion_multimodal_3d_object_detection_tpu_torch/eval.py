@@ -19,7 +19,9 @@ mAP/NDS in ``eval_results/eval_metrics_output.txt``, with
 ``metrics.save_submission: <path>`` a nuScenes ``submission.json``.
 
 `main(config_path, device=None)` runs the same from Python
-(`device="cpu"` for the CPU).
+(`device="cpu"` for the CPU). A model config with the MLP head (attention
+or late fusion) raises at the start: this pipeline decodes CenterNet maps,
+and the JAX eval CLI fails on the MLP head's outputs at its decode.
 """
 
 from __future__ import annotations
@@ -46,6 +48,12 @@ def main(config_path: Optional[str] = None, device=None) -> Dict:
     loader_config = load_config(config_path) if config_path else None
 
     spec = DetectorSpec.from_config(model_config)
+    if not spec.head_is_centernet:
+        # JAX's eval.py gets that far and fails in decode_to_host on {'cls', 'box'}
+        raise ValueError(
+            f"the eval CLI decodes CenterNet maps only; fusion_type={spec.fusion_type!r} builds the MLP "
+            "head (the JAX eval CLI fails on it as well); Trainer.evaluate scores such a model"
+        )
     compat = CompatFlags.from_config(model_config)
     train_spec = TrainSpec.from_config(loader_config or model_config)
 

@@ -7,7 +7,9 @@ on one GPU (the CPU with ``device="cpu"``):
   PointNet kernel (B1; its plain version on the CPU), then the eval-path
   CenterNet decode (voxel 0.512, quirk Q3) above ``score_threshold`` 0.3,
   or the resurrected ``inference.post_processing`` (threshold, BEV NMS,
-  cap) when ``compat.ignore_post_processing_config`` is off;
+  cap) when ``compat.ignore_post_processing_config`` is off. The MLP head
+  (attention and late fusion) gives one detection: its box, the softmax
+  probability of its most probable class, zero velocities;
 - per-sample P/R/F1 with the axis-aligned BEV IoU at 0.5 (yaw ignored, as
   the reference does) against the labelled GT boxes only;
 - `batch_inference`: micro-averaged P/R/F1 over N samples;
@@ -38,7 +40,7 @@ from .config import DEFAULT_CLASSES, CompatFlags, DetectorSpec, PostProcessSpec,
 from .models.detector import MultiModal3DDetector
 from .ops.decode import decode_centernet_predictions, decode_to_host
 from .ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
-from .train.loop import _model_inputs
+from .train.loop import _model_inputs, mlp_detections
 from .utils.convert import load_jax_variables
 from .utils.device import resolve_device
 from .utils.restore import load_serving_variables
@@ -106,11 +108,6 @@ class InferenceEngine:
         self.config = config if config is not None else load_config(config_path)
         self.compat = CompatFlags.from_config(self.config)
         self.spec = DetectorSpec.from_config(self.config)
-        if not self.spec.head_is_centernet:
-            raise NotImplementedError(
-                f"detection_head={self.spec.detection_head!r}: the engine's MLP-head branch is not "
-                "ported yet (ROADMAP A9)"
-            )
         if self.spec.use_camera and self.spec.bev.camera_to_bev == "geometric":
             raise NotImplementedError(
                 "camera_to_bev: geometric needs frustum cells, which the engine does not pass; "
@@ -172,11 +169,14 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def _forward(self, sample: Dict):
-        """One sample's prediction maps (NHWC, batch 1) and its fixed-size
-        decode, both on the device."""
+        """One sample's predictions (NHWC maps, or the MLP head's {'cls',
+        'box'}; batch 1) and the maps' fixed-size decode (None for the MLP
+        head), on the device."""
         batch = {k: np.asarray(sample[k])[None] for k in ("camera_imgs", "lidar_points", "radar_points")
                  if k in sample}
         preds = self.model(*_model_inputs(self.spec, batch, self.device, torch.float32))
+        if not self.spec.head_is_centernet:
+            return preds, None
         decoded = decode_centernet_predictions(
             preds,
             max_detections=self.spec.centernet.max_detections,
@@ -192,13 +192,16 @@ class InferenceEngine:
             raise RuntimeError("load_model or init_random first")
         t0 = time.perf_counter()
         preds, decoded = self._forward(sample)
-        # the host copy of the decode waits for the device work
-        dets = decode_to_host(
-            decoded,
-            score_thresh=self.score_threshold,
-            nms_thresh=self.post_process.nms_threshold if self.post_process else None,
-            max_detections=self.post_process.max_detections if self.post_process else None,
-        )[0]
+        # the host copy of the outputs waits for the device work
+        if decoded is None:  # the MLP head (inference_engine.py:288-299 of the JAX package)
+            dets = dict(mlp_detections(preds)[0], velocities=np.zeros((1, 2)))
+        else:
+            dets = decode_to_host(
+                decoded,
+                score_thresh=self.score_threshold,
+                nms_thresh=self.post_process.nms_threshold if self.post_process else None,
+                max_detections=self.post_process.max_detections if self.post_process else None,
+            )[0]
         elapsed = time.perf_counter() - t0
 
         p, r, f1, tp, fp, fn = precision_recall_f1(dets["boxes"], _labelled_gt(sample))

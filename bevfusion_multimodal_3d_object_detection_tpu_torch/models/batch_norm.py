@@ -2,9 +2,9 @@
 
 torch's BatchNorm updates ``running_var`` with the unbiased batch variance,
 n/(n-1) · var; flax's ``nn.BatchNorm`` (momentum 0.9) with the biased one,
-the variance both normalize with in training. `FlaxBatchNorm1d` and
-`FlaxBatchNorm2d` keep torch's parameters, buffers and state_dict keys, and
-normalize as torch does; in training they update
+the variance both normalize with in training. `FlaxBatchNorm1d`,
+`FlaxBatchNorm2d` and `FlaxBatchNorm3d` keep torch's parameters, buffers and
+state_dict keys, and normalize as torch does; in training they update
 
     running = (1 - momentum) · running + momentum · batch statistic
 
@@ -55,6 +55,10 @@ class FlaxBatchNorm1d(_FlaxStatistics, nn.BatchNorm1d):
 
 class FlaxBatchNorm2d(_FlaxStatistics, nn.BatchNorm2d):
     """BatchNorm2d over (N, C, H, W) with flax's running statistics."""
+
+
+class FlaxBatchNorm3d(_FlaxStatistics, nn.BatchNorm3d):
+    """BatchNorm3d over (N, C, D, H, W) with flax's running statistics."""
 
 
 @contextlib.contextmanager

@@ -1,8 +1,11 @@
 """Detector assembly + factory.
 
-Port of ``bevfusion_multimodal_3d_object_detection_tpu/models/detector.py:40-190``
-for ``fusion_type: bev`` with the CenterNet head. The public layouts are the
-JAX package's, so the two compare like with like:
+Port of ``bevfusion_multimodal_3d_object_detection_tpu/models/detector.py:40-190``:
+the encoders of the active modalities (PointNet or VoxelNet LiDAR), the
+fusion by ``fusion_type`` (``bev``, ``attention``, ``late``) and the head
+(CenterNet for ``bev`` with ``detection_head: centernet``, else the MLP
+head). The public layouts are the JAX package's, so the two compare like
+with like:
 
   camera_imgs:  (B, N_cam, H, W, 3)
   lidar_points: (B, N, C)
@@ -10,7 +13,8 @@ JAX package's, so the two compare like with like:
   camera_cells: (B, N_cam, D, H', W') int, camera_chunks: the per-camera
                 chunk plans (``camera_to_bev: geometric`` only)
 
-and the prediction maps come back NHWC. Inside, everything is NCHW.
+and the prediction maps come back NHWC; the MLP head gives {'cls', 'box'}.
+Inside, everything is NCHW.
 """
 
 from __future__ import annotations
@@ -22,44 +26,50 @@ import torch
 from torch import nn
 
 from ..config import DetectorSpec, load_config
-from .encoders import MultiRadarEncoder, PointNetLiDAREncoder, ResNetCameraEncoder
-from .fusion import FlexibleBEVFusion
-from .heads import CenterNetHead
+from .encoders import (
+    MultiRadarEncoder,
+    PointNetLiDAREncoder,
+    ResNetCameraEncoder,
+    VoxelNetLiDAREncoder,
+)
+from .fusion import FlexibleAttentionFusion, FlexibleBEVFusion, FlexibleLateFusion
+from .heads import CenterNetHead, MLPDetectionHead
 
 
 class MultiModal3DDetector(nn.Module):
     def __init__(self, spec: DetectorSpec = DetectorSpec(),
                  mask_padding: bool = False, fold_bn: bool = False):
         super().__init__()
-        if spec.fusion_type != "bev":
-            raise NotImplementedError(
-                f"fusion_type={spec.fusion_type!r} is not ported yet "
-                "(ROADMAP queue A: attention and late fusion)"
-            )
-        if not spec.head_is_centernet:
-            raise NotImplementedError(
-                f"detection_head={spec.detection_head!r} is not ported yet "
-                "(ROADMAP queue A: the MLP head)"
-            )
-        if spec.use_lidar and spec.lidar.encoder_type.lower() == "voxelnet":
-            raise NotImplementedError(
-                "lidar encoder VoxelNet is not ported yet (ROADMAP queue A: VoxelNet)"
-            )
         self.spec = spec
         channels = {}
         if spec.use_camera:
             self.camera_encoder = ResNetCameraEncoder(spec.camera, fold_bn=fold_bn)
             channels["camera_channels"] = spec.camera.out_channels
         if spec.use_lidar:
-            self.lidar_encoder = PointNetLiDAREncoder(spec.lidar, mask_padding)
+            if spec.lidar.encoder_type.lower() == "voxelnet":
+                self.lidar_encoder = VoxelNetLiDAREncoder(spec.lidar, pc_range=spec.bev.pc_range)
+            else:
+                self.lidar_encoder = PointNetLiDAREncoder(spec.lidar, mask_padding)
             channels["lidar_channels"] = self.lidar_encoder.out_channels
         if spec.use_radar:
             self.radar_encoder = MultiRadarEncoder(spec.radar, mask_padding)
             channels["radar_channels"] = self.radar_encoder.out_channels
-        self.fusion = FlexibleBEVFusion(
-            spec.bev, spec.use_camera, spec.use_lidar, spec.use_radar, **channels
-        )
-        self.det_head = CenterNetHead(spec.centernet)
+        mods = (spec.use_camera, spec.use_lidar, spec.use_radar)
+        if spec.fusion_type == "bev":
+            self.fusion = FlexibleBEVFusion(spec.bev, *mods, **channels)
+            fused_channels = spec.bev.bev_channels
+        elif spec.fusion_type == "attention":
+            self.fusion = FlexibleAttentionFusion(spec.attention, *mods, **channels)
+            fused_channels = self.fusion.out_channels
+        elif spec.fusion_type == "late":
+            self.fusion = FlexibleLateFusion(spec.late, *mods, **channels)
+            fused_channels = self.fusion.out_channels
+        else:
+            raise ValueError(f"Unknown fusion type: {spec.fusion_type}")
+        if spec.head_is_centernet:
+            self.det_head = CenterNetHead(spec.centernet)
+        else:  # the MLP head for the global fusions (ref: fusion.py:1074-1088)
+            self.det_head = MLPDetectionHead(spec.mlp, fused_channels)
 
     def forward(self, camera_imgs: Optional[torch.Tensor] = None,
                 lidar_points: Optional[torch.Tensor] = None,
@@ -75,23 +85,36 @@ class MultiModal3DDetector(nn.Module):
             lidar = self.lidar_encoder(lidar_points)
         if s.use_radar:
             radar = self.radar_encoder(radar_points)
-        fused = self.fusion(cam, lidar, radar, camera_cells=camera_cells, camera_chunks=camera_chunks)
+        if s.fusion_type == "bev":
+            fused = self.fusion(cam, lidar, radar, camera_cells=camera_cells, camera_chunks=camera_chunks)
+        else:
+            fused = self.fusion(cam, lidar, radar)
         preds = self.det_head(fused)
+        if not s.head_is_centernet:
+            return preds
         return {k: v.permute(0, 2, 3, 1) for k, v in preds.items()}
+
+    def get_config_str(self) -> str:
+        s = self.spec
+        return f"{s.modality_string()}_{s.fusion_type}_{s.detection_head}"
 
     def init_weights(self, generator: torch.Generator) -> "MultiModal3DDetector":
         """Seeded init: LeCun-normal conv/linear weights (flax's default
-        scale), zero biases, identity BatchNorms, and the head's own
-        N(0, 0.001) init with the heatmap prior bias."""
+        scale), zero biases, identity BatchNorms and LayerNorms, N(0, 1)
+        positional embeddings (flax's ``normal(1.0)``), and the head's own
+        init (CenterNet: N(0, 0.001) with the heatmap prior bias)."""
         with torch.no_grad():
             for m in self.modules():
-                if isinstance(m, (nn.Conv2d, nn.Linear)):
+                if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
                     fan_in = m.weight[0].numel()
                     m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
                     if m.bias is not None:
                         m.bias.zero_()
-                elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+                elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
                     m.reset_parameters()
+                elif isinstance(m, FlexibleAttentionFusion):
+                    for p in m.pos_embeds():
+                        p.normal_(0.0, 1.0, generator=generator)
             self.det_head.reset_parameters(generator)
         return self
 

@@ -15,6 +15,12 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/models/encoders.py``:
   Train mode runs the plain chain (the JAX package trains on it too), with
   BatchNorm batch statistics over batch x points in the MLP's f32 and
   flax's running statistics (`models.batch_norm`).
+- `VFELayer`, `VoxelNetLiDAREncoder` (``:286-401``): a point MLP, a
+  scatter-max of the points into a coarse voxel grid (``.at[].max`` in JAX,
+  ``scatter_reduce(..., "amax")`` here: no hand kernel, neither package has
+  one), three stride-2 3-D convs and a max over space. Its point MLP is not
+  fused and follows a cast of the model, as the JAX package computes it in
+  the model's dtype. `VFELayer` is unused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from torch import nn
 
 from ..config import CameraEncoderSpec, LidarEncoderSpec, RadarEncoderSpec
 from ..ops.pointnet_fused import pointnet_fused
-from .batch_norm import FlaxBatchNorm1d
+from .batch_norm import FlaxBatchNorm1d, FlaxBatchNorm3d
 from .resnet import ResNet18Trunk, batch_norm
 
 _NEG_INF = -1e9
@@ -64,10 +70,12 @@ class _PointMLP(nn.Module):
     (B, N, C); BN statistics run over batch and points, like BatchNorm1d on
     (B, C, N)."""
 
-    def __init__(self, in_channels: int, layers: Sequence[int], use_bn: bool = True):
+    def __init__(self, in_channels: int, layers: Sequence[int], use_bn: bool = True,
+                 keep_f32: bool = True):
         super().__init__()
         self.num_layers = len(layers)
         self.use_bn = use_bn
+        self.keep_f32 = keep_f32
         width = in_channels
         for i, out in enumerate(layers):
             self.add_module(f"mlp{i + 1}", nn.Linear(width, out))
@@ -79,7 +87,11 @@ class _PointMLP(nn.Module):
         # BatchNorm folds from the f32 parameters, as the JAX fused path does
         # (pointnet_pallas.py:51-68): a cast of the model to a narrower type
         # (.to(bf16), .half()) moves this MLP's tensors to the new device but
-        # keeps them in f32; a cast to f64 is followed.
+        # keeps them in f32; a cast to f64 is followed. With keep_f32=False
+        # (an MLP that B1 never folds) every cast is followed.
+        if not self.keep_f32:
+            return super()._apply(fn, recurse)
+
         def keep_f32(t):
             out = fn(t)
             if (t.dtype == torch.float32 and out.is_floating_point()
@@ -225,3 +237,87 @@ class MultiRadarEncoder(nn.Module):
         if method == "max":
             return feats.amax(dim=1)
         return feats.mean(dim=1)
+
+
+class VFELayer(nn.Module):
+    """Voxel feature encoding (``encoders.py:286-305``): Linear -> BatchNorm
+    -> ReLU to out_channels // 2, then each point's features concatenated
+    with their (masked) max over the voxel's points. (V, P, C) ->
+    (V, P, out_channels); `mask` (V, P, 1) bool or None."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        half = out_channels // 2
+        self.dense = nn.Linear(in_channels, half)
+        self.bn = FlaxBatchNorm1d(half, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = self.dense(x)
+        y = F.relu(self.bn(y.reshape(-1, y.shape[-1])).reshape(y.shape))
+        agg = masked_max(y, mask, dim=-2)[..., None, :].expand_as(y)
+        return torch.cat([y, agg], dim=-1)
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python number as a 0-d tensor of `like`'s dtype, as JAX's weak
+    typing rounds it before the operation (it matters in bf16)."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+class VoxelNetLiDAREncoder(nn.Module):
+    """(B, N, C) zero-padded points -> (B, feat_dim) (``encoders.py:308-401``).
+
+    A point MLP 4 -> 32 -> 64 (``vfe``), voxel ids on a (D, H, W) grid over
+    `pc_range` (padded points go to a trash voxel), a scatter-max of the
+    point features into the voxels (empty voxels 0), three stride-2
+    Conv3d + BatchNorm + ReLU (64, 128, 256), a max over space and a dense
+    projection. Convolutions run NCDHW."""
+
+    def __init__(self, spec: LidarEncoderSpec = LidarEncoderSpec(),
+                 pc_range: Tuple[float, ...] = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
+                 grid: Tuple[int, int, int] = (10, 32, 32)):
+        super().__init__()
+        self.spec, self.pc_range, self.grid = spec, tuple(pc_range), tuple(grid)
+        self.vfe = _PointMLP(spec.input_channels, (32, 64), spec.use_batch_norm, keep_f32=False)
+        width = 64
+        for i, ch in enumerate((64, 128, 256), start=1):
+            self.add_module(f"conv3d_{i}", nn.Conv3d(width, ch, 3, 2, 1))
+            self.add_module(f"conv3d_bn{i}", FlaxBatchNorm3d(ch, eps=1e-5, momentum=0.1))
+            width = ch
+        self.proj = nn.Linear(width, spec.feat_dim)
+        self.out_channels = spec.feat_dim
+
+    def voxel_ids(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """(B, N) voxel index of each point in [0, D*H*W), D*H*W for padding,
+        with the JAX package's arithmetic in the points' dtype."""
+        d, h, w = self.grid
+        x_min, y_min, z_min, x_max, y_max, z_max = self.pc_range
+
+        def index(coord, lo, hi, n):
+            t = (coord - _scalar(lo, coord)) / _scalar(hi - lo, coord) * _scalar(n, coord)
+            return t.to(torch.int32).clamp(0, n - 1).long()
+
+        ix = index(x[..., 0], x_min, x_max, w)
+        iy = index(x[..., 1], y_min, y_max, h)
+        iz = index(x[..., 2], z_min, z_max, d)
+        vid = (iz * h + iy) * w + ix
+        return torch.where(mask[..., 0], vid, torch.full_like(vid, d * h * w))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        d, h, w = self.grid
+        mask = points_validity_mask(x)
+        feats = self.vfe(x)  # (B, N, 64)
+        c = feats.shape[-1]
+        vid = self.voxel_ids(x, mask)
+        neg = _scalar(_NEG_INF, feats)
+        feats = torch.where(mask, feats, neg)
+        voxels = torch.full((b, d * h * w + 1, c), _NEG_INF, dtype=feats.dtype, device=feats.device)
+        voxels = voxels.scatter_reduce(1, vid[..., None].expand(-1, -1, c), feats, "amax")
+        voxels = voxels[:, : d * h * w]
+        voxels = torch.where(voxels <= neg, torch.zeros_like(voxels), voxels)
+        voxels = voxels.reshape(b, d, h, w, c).permute(0, 4, 1, 2, 3)  # NDHWC -> NCDHW
+        for i in (1, 2, 3):
+            voxels = getattr(self, f"conv3d_{i}")(voxels)
+            voxels = F.relu(getattr(self, f"conv3d_bn{i}")(voxels))
+        return self.proj(voxels.amax(dim=(2, 3, 4)))

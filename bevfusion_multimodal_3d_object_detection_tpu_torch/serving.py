@@ -71,6 +71,13 @@ class InferenceServer:
         self.device = resolve_device(device)
         self.config = config if config is not None else load_config(config_path)
         self.spec = DetectorSpec.from_config(self.config)
+        if not self.spec.head_is_centernet:
+            raise ValueError(
+                f"the server decodes CenterNet maps only; fusion_type={self.spec.fusion_type!r} with "
+                f"detection_head={self.spec.detection_head!r} builds the MLP head. The JAX server has "
+                "only the CenterNet decode as well (serving.py:160) and fails on the first request; "
+                "serve such a model through InferenceEngine"
+            )
         self.compat = CompatFlags.from_config(self.config)
         self.batch_size = batch_size
         self.max_delay_s = max_delay_ms / 1000.0

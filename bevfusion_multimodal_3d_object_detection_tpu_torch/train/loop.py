@@ -7,9 +7,11 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/train/loop.py``
   learning rate per update (constant under Q6, else cosine with an optional
   linear warmup), wrapped in ``MultiSteps`` when gradients accumulate;
 - `make_train_step` (``:131-239``): forward in train mode (BatchNorm batch
-  statistics), CenterNet targets on the device, loss, backward and one
-  optimizer update, with bf16 autocast under ``train.mixed_precision``;
-- `make_eval_step` (``:242-291``): forward + decode;
+  statistics, dropout), targets on the device (CenterNet, or the MLP head's
+  first valid object), loss, backward and one optimizer update, with bf16
+  autocast under ``train.mixed_precision``;
+- `make_eval_step` (``:242-291``): forward + decode (the MLP head's raw
+  ``cls``/``box``);
 - `Trainer` (``:294-615``): epochs with a per-step JSONL log, validation
   with mAP/NDS, and checkpoints in the JAX package's layout.
 
@@ -36,7 +38,7 @@ import torch
 from ..config import CompatFlags, DetectorSpec, TrainSpec
 from ..models.detector import MultiModal3DDetector
 from ..ops.decode import decode_centernet_predictions
-from ..ops.losses import centernet_loss
+from ..ops.losses import centernet_loss, detection_loss, prepare_mlp_targets
 from ..ops.preprocess import normalize_images
 from ..ops.targets import prepare_centernet_targets
 from ..utils.device import resolve_device
@@ -82,7 +84,8 @@ def make_eval_step(
     device=None,
 ) -> Callable[[Dict], Dict[str, torch.Tensor]]:
     """Returns eval_step(batch) -> decoded {'boxes' (B, K, 7), 'scores',
-    'labels', 'velocities'} on the device. The model moves to `device` (the
+    'labels', 'velocities'} on the device (the MLP head: its raw {'cls',
+    'box'}, as the JAX package returns them). The model moves to `device` (the
     GPU unless the caller names one) and into eval mode; it computes in the
     dtype of its parameters, and decode runs in f32.
 
@@ -104,6 +107,8 @@ def make_eval_step(
     def eval_step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.eval()  # a train step on the same model may have run since
         preds = model(*_model_inputs(spec, batch, device, dtype), **_model_kwargs(spec, batch, device))
+        if not spec.head_is_centernet:
+            return preds
         return decode_centernet_predictions(
             preds,
             max_detections=max_detections,
@@ -254,8 +259,14 @@ class TrainStep:
                               **_model_kwargs(spec, batch, device))
 
     def loss(self, preds: Dict[str, torch.Tensor], batch: Dict) -> Dict[str, torch.Tensor]:
-        """The CenterNet loss dict, with targets built on the device."""
+        """The loss dict, with targets built on the device: the CenterNet
+        loss, or for the MLP head `detection_loss` on the first valid object."""
         spec = self.model.spec
+        if not spec.head_is_centernet:
+            targets = prepare_mlp_targets(_tensor(batch["gt_boxes"], self.device),
+                                          _tensor(batch["gt_labels"], self.device),
+                                          num_classes=spec.num_classes)
+            return detection_loss(preds, targets)
         targets = prepare_centernet_targets(
             _tensor(batch["gt_boxes"], self.device),
             _tensor(batch["gt_labels"], self.device),
@@ -300,7 +311,8 @@ def make_train_step(
     device=None,
 ) -> TrainStep:
     """Returns train_step(batch) -> the loss dict (``total_loss`` and the
-    five terms, 0-d f32 tensors on the device), after one forward, backward
+    five CenterNet terms, or the MLP head's ``cls_loss`` and ``box_loss``;
+    0-d f32 tensors on the device), after one forward, backward
     and optimizer update. The model moves to `device` (the GPU unless the
     caller names one) and trains in the dtype of its parameters (f32 as
     built); under ``train_spec.mixed_precision`` the forward runs in bf16
@@ -322,6 +334,22 @@ def make_train_step(
     device = resolve_device(device)
     model.to(device).train()
     return TrainStep(model, optimizer, train_spec, compat, check_gradients, device)
+
+
+def mlp_detections(preds: Dict[str, torch.Tensor]) -> List[Dict[str, np.ndarray]]:
+    """One detection per sample from the MLP head's {'cls', 'box'}: the box,
+    the softmax probability of the most probable class and its int64 label,
+    with the JAX Trainer's numpy arithmetic (``train/loop.py:473-494``)."""
+    cls = preds["cls"].float().cpu().numpy()
+    box = preds["box"].float().cpu().numpy()
+    probs = np.exp(cls - cls.max(axis=-1, keepdims=True))
+    probs /= probs.sum(axis=-1, keepdims=True)
+    dets = []
+    for i in range(cls.shape[0]):
+        label = int(np.argmax(probs[i]))
+        dets.append({"boxes": box[i:i + 1], "scores": np.array([probs[i, label]]),
+                     "labels": np.array([label], np.int64)})
+    return dets
 
 
 class Trainer:
@@ -421,7 +449,10 @@ class Trainer:
         """Validation pass: decode and metrics (the training-eval decode with
         score_thresh 0.0, ref: train_detect.py:500-536). `post_process`, a
         `PostProcessSpec` (``compat.ignore_post_processing_config`` off),
-        applies its score threshold, BEV NMS and cap instead."""
+        applies its score threshold, BEV NMS and cap instead. The MLP head
+        gives one detection per sample: the softmax's most probable class,
+        its probability and the predicted box (`post_process` unused, as in
+        the JAX package)."""
         from ..ops.decode import decode_to_host
         from ..utils.metrics import compute_metrics
 
@@ -431,7 +462,9 @@ class Trainer:
         for batch in loader:
             n = len(batch["gt_boxes"])
             decoded = self.eval_step(batch)
-            if post_process is not None:
+            if not self.spec.head_is_centernet:
+                dets = mlp_detections(decoded)
+            elif post_process is not None:
                 dets = decode_to_host(
                     decoded, score_thresh=post_process.score_threshold,
                     nms_thresh=post_process.nms_threshold, max_detections=post_process.max_detections,

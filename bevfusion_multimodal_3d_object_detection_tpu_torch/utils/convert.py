@@ -3,10 +3,13 @@
 The port's modules are named after the flax tree, and one table per module
 type gives each torch parameter or buffer its flax leaf and layout:
 
-- Conv kernel HWIO <-> Conv2d weight OIHW;
+- Conv kernel HWIO <-> Conv2d weight OIHW, DHWIO <-> Conv3d weight OIDHW;
 - Dense kernel (in, out) <-> Linear weight (out, in);
 - BatchNorm scale / bias (``params``) and mean / var (``batch_stats``) <->
-  weight / bias / running_mean / running_var.
+  weight / bias / running_mean / running_var;
+- LayerNorm scale / bias <-> weight / bias;
+- a parameter a module holds itself (the attention fusion's positional
+  embeddings) <-> the ``params`` leaf of the same name, as it is.
 
 `load_jax_variables(model, variables)` loads the JAX detector's
 ``{"params", "batch_stats"}`` tree (numpy, folded or unfolded camera to match
@@ -55,8 +58,17 @@ _CONV: _Layout = {
     "weight": ("params", "kernel", lambda a: a.transpose(2, 3, 1, 0), lambda a: a.transpose(3, 2, 0, 1)),
     "bias": ("params", "bias", _same, _same),
 }
+_CONV3D: _Layout = {
+    "weight": ("params", "kernel", lambda a: a.transpose(2, 3, 4, 1, 0),
+               lambda a: a.transpose(4, 3, 0, 1, 2)),
+    "bias": ("params", "bias", _same, _same),
+}
 _DENSE: _Layout = {
     "weight": ("params", "kernel", lambda a: a.T, lambda a: a.T),
+    "bias": ("params", "bias", _same, _same),
+}
+_LAYER_NORM: _Layout = {
+    "weight": ("params", "scale", _same, _same),
     "bias": ("params", "bias", _same, _same),
 }
 
@@ -66,9 +78,14 @@ def _layout(module: nn.Module) -> _Layout:
         return _BN
     if isinstance(module, nn.Conv2d):
         return _CONV
+    if isinstance(module, nn.Conv3d):
+        return _CONV3D
     if isinstance(module, nn.Linear):
         return _DENSE
-    return {}
+    if isinstance(module, nn.LayerNorm):
+        return _LAYER_NORM
+    # parameters a module holds itself keep their name and layout
+    return {name: ("params", name, _same, _same) for name in module._parameters}
 
 
 def _leaves(tree: Dict, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -88,7 +105,7 @@ def _target(model: nn.Module, path: Tuple[str, ...], collection: str):
         raise KeyError(f"{collection}/{'/'.join(path)}: no module {mod_path!r} in the model") from None
     for torch_leaf, (coll, flax_leaf, _, to_torch) in _layout(module).items():
         if coll == collection and flax_leaf == leaf:
-            return f"{mod_path}.{torch_leaf}", to_torch
+            return f"{mod_path}.{torch_leaf}" if mod_path else torch_leaf, to_torch
     raise KeyError(
         f"{collection}/{'/'.join(path)}: no counterpart in {type(module).__name__} {mod_path!r}"
     )
@@ -97,12 +114,22 @@ def _target(model: nn.Module, path: Tuple[str, ...], collection: str):
 def _source(model: nn.Module, key: str):
     """(collection, flax path, torch -> JAX layout function) of one
     state_dict key."""
-    mod_path, leaf = key.rsplit(".", 1)
+    mod_path, leaf = _split(key)
     entry = _layout(model.get_submodule(mod_path)).get(leaf)
     if entry is None:
         raise KeyError(f"{key}: no counterpart in the JAX tree")
     collection, flax_leaf, to_jax, _ = entry
-    return collection, tuple(mod_path.split(".")) + (flax_leaf,), to_jax
+    return collection, _path(mod_path) + (flax_leaf,), to_jax
+
+
+def _split(key: str) -> Tuple[str, str]:
+    """A state_dict key -> (module path, leaf); the root module's path is ''."""
+    mod_path, _, leaf = key.rpartition(".")
+    return mod_path, leaf
+
+
+def _path(mod_path: str) -> Tuple[str, ...]:
+    return tuple(mod_path.split(".")) if mod_path else ()
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -183,10 +210,10 @@ def _param_paths(optimizer, model: nn.Module) -> List[Tuple[Tuple[str, ...], Cal
         raise ValueError("the optimizer must hold every parameter of the model, and no other")
     out = []
     for p in optimizer.params:
-        mod_path, leaf = names[id(p)].rsplit(".", 1)
+        mod_path, leaf = _split(names[id(p)])
         collection, flax_leaf, to_jax, to_torch = _layout(model.get_submodule(mod_path))[leaf]
         assert collection == "params"
-        out.append((tuple(mod_path.split(".")) + (flax_leaf,), to_jax, to_torch))
+        out.append((_path(mod_path) + (flax_leaf,), to_jax, to_torch))
     return out
 
 

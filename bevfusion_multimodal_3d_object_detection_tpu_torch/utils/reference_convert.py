@@ -2,12 +2,13 @@
 framework -> the JAX package's ``{"params", "batch_stats"}`` layout (numpy).
 
 The port's own copy of
-``bevfusion_multimodal_3d_object_detection_tpu/utils/reference_convert.py:111-293``
-for the modules the port has: the three encoders, the BEV fusion and the
-CenterNet head. The tree it returns is the one msgpack checkpoints carry,
-so it reaches the port's modules the same way (`utils.convert.
-load_jax_variables`). A state_dict with attention-fusion, late-fusion or
-MLP-head keys raises: the port's detector has none of those (ROADMAP A9).
+``bevfusion_multimodal_3d_object_detection_tpu/utils/reference_convert.py:111-293``:
+the three encoders, the BEV, attention and late fusions and both heads. The
+tree it returns is the one msgpack checkpoints carry, so it reaches the
+port's modules the same way (`utils.convert.load_jax_variables`). The
+VoxelNet LiDAR encoder has no reference key mapping in the JAX package
+either: its leaves keep their values, as JAX's strict=False merge leaves
+them.
 
 Key layout of the reference:
   camera_encoder.conv1/bn1, camera_encoder.layer{1..3}.{0,1}.*,
@@ -17,10 +18,16 @@ Key layout of the reference:
   fusion.camera_proj.{0,1,3,4}, fusion.lidar_init.{0,2},
   fusion.lidar_upsample.{0,1,4,5}, fusion.radar_proj.0,
   fusion.radar_refine.{0,1,3,4}, fusion.bev_fusion.{0,1,3,4}
-  det_head.{heatmap,offset,size,rot,vel}_head.{0,2}
+  attention: fusion.{camera,lidar,radar}_proj (no index),
+  fusion.{cam,lidar,radar}_pos_embed,
+  fusion.self_attention_layers.{i}.self_attn.{query,key,value,out},
+  .ffn.{0,3}, .norm1, .norm2; fusion.output_proj.{0,3}
+  late: fusion.fusion_mlp.{0,3}
+  det_head.{heatmap,offset,size,rot,vel}_head.{0,2}; det_head.head.{0,3}
+  (the MLP head)
 
 Weight layouts: Conv2d (O, I, kH, kW) -> (kH, kW, I, O); Conv1d (O, I, 1)
-and Linear (O, I) -> Dense (I, O).
+and Linear (O, I) -> Dense (I, O); LayerNorm weight -> scale.
 """
 
 from __future__ import annotations
@@ -30,14 +37,6 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
-
-# keys of the reference modules the port's detector does not have
-_UNPORTED = {
-    "fusion.output_proj.0.weight": "attention fusion",
-    "fusion.fusion_mlp.0.weight": "late fusion",
-    "det_head.head.0.weight": "the MLP head",
-}
-
 
 def _numpy(v) -> np.ndarray:
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
@@ -80,6 +79,10 @@ def _dense(sd: Dict, prefix: str) -> Dict:
     return {"kernel": _linear(sd[f"{prefix}.weight"]), "bias": np.asarray(sd[f"{prefix}.bias"])}
 
 
+def _layernorm(sd: Dict, prefix: str) -> Dict:
+    return {"scale": np.asarray(sd[f"{prefix}.weight"]), "bias": np.asarray(sd[f"{prefix}.bias"])}
+
+
 def _resnet18_trunk(sd: Dict) -> Tuple[Dict, Dict]:
     """torchvision ResNet-18 keys (conv1, bn1, layer{1..3}) -> the trunk's
     (params, batch_stats)."""
@@ -119,12 +122,6 @@ def convert_reference_checkpoint(state_dict: Dict[str, Any]) -> Tuple[Dict, Dict
     the detector. Which modules are present is read from the keys, so every
     modality combination converts."""
     sd = {k: _numpy(v) for k, v in state_dict.items()}
-    unported = sorted(what for key, what in _UNPORTED.items() if key in sd)
-    if unported:
-        raise NotImplementedError(
-            f"the checkpoint holds {' and '.join(unported)}, which the port's detector does not "
-            "have yet (ROADMAP A9)"
-        )
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
 
@@ -166,6 +163,30 @@ def convert_reference_checkpoint(state_dict: Dict[str, Any]) -> Tuple[Dict, Dict
     if "fusion.bev_fusion.0.weight" in sd:
         _conv_bn(sd, "fusion.bev_fusion.0", "fusion.bev_fusion.1", "bev_fusion1", fus_p, fus_s)
         _conv_bn(sd, "fusion.bev_fusion.3", "fusion.bev_fusion.4", "bev_fusion2", fus_p, fus_s)
+    # attention fusion: its projections carry no Sequential index
+    # (`fusion.camera_proj.weight` against BEV's `fusion.camera_proj.0.weight`)
+    if "fusion.output_proj.0.weight" in sd:
+        for ref_name, embed in (("camera_proj", "cam_pos_embed"), ("lidar_proj", "lidar_pos_embed"),
+                                ("radar_proj", "radar_pos_embed")):
+            if f"fusion.{ref_name}.weight" in sd:
+                fus_p[ref_name] = _dense(sd, f"fusion.{ref_name}")
+                fus_p[embed] = np.asarray(sd[f"fusion.{embed}"])
+        i = 0
+        while f"fusion.self_attention_layers.{i}.norm1.weight" in sd:
+            base = f"fusion.self_attention_layers.{i}"
+            fus_p[f"self_attn_{i}"] = {part: _dense(sd, f"{base}.self_attn.{part}")
+                                       for part in ("query", "key", "value", "out")}
+            fus_p[f"ffn1_{i}"] = _dense(sd, f"{base}.ffn.0")
+            fus_p[f"ffn2_{i}"] = _dense(sd, f"{base}.ffn.3")
+            fus_p[f"norm1_{i}"] = _layernorm(sd, f"{base}.norm1")
+            fus_p[f"norm2_{i}"] = _layernorm(sd, f"{base}.norm2")
+            i += 1
+        fus_p["out_proj1"] = _dense(sd, "fusion.output_proj.0")
+        fus_p["out_proj2"] = _dense(sd, "fusion.output_proj.3")
+    if "fusion.fusion_mlp.0.weight" in sd:  # late fusion
+        fus_p["fusion1"] = _dense(sd, "fusion.fusion_mlp.0")
+        fus_p["fusion2"] = _dense(sd, "fusion.fusion_mlp.3")
+    # the global fusions have no statistics: an empty subtree is never merged
     if fus_p:
         params["fusion"], stats["fusion"] = fus_p, fus_s
 
@@ -177,6 +198,9 @@ def convert_reference_checkpoint(state_dict: Dict[str, Any]) -> Tuple[Dict, Dict
                 "conv1": {"kernel": _conv2d(sd[f"{key}.0.weight"]), "bias": np.asarray(sd[f"{key}.0.bias"])},
                 "conv2": {"kernel": _conv2d(sd[f"{key}.2.weight"]), "bias": np.asarray(sd[f"{key}.2.bias"])},
             }
+    if "det_head.head.0.weight" in sd:  # the MLP head
+        head_p["fc1"] = _dense(sd, "det_head.head.0")
+        head_p["fc2"] = _dense(sd, "det_head.head.3")
     if head_p:
         params["det_head"] = head_p
     return params, stats

@@ -105,7 +105,27 @@ Phases (any failure raises and the script exits non-zero):
    port's `InferenceClient`, each equal to the in-process `server.infer` of
    the same sample (scores 1e-4, boxes 1e-3), /stats counting them, 413 on
    an oversized POST, p50 latency and requests/s; and the serve CLI in a
-   subprocess, SIGTERM with a request in flight: both answered, exit 0.
+   subprocess, SIGTERM with a request in flight: both answered, exit 0;
+13. the fusion and head variants (attention and late fusion with the MLP
+   head, ``bev`` with the VoxelNet LiDAR encoder), each step with the B1
+   launch counter zeroed just before and read just after: (a) small f32
+   models on the card against the CPU (random non-zero biases and BatchNorm
+   statistics, TF32 off), every output within 1e-4 of its scale, B1
+   launched 2 times per attention or late forward and once per VoxelNet
+   forward (radar only); the comparison must reject the attention with its
+   heads split the other way and, on tokens of small spread, LayerNorm at
+   torch's epsilon 1e-5; (b) a small train step of attention + MLP and late +
+   MLP on the card against the CPU's float64 step at phase 9's limits, with
+   every dropout at 0, and no B1 launch; (c) at full width (base.yaml with
+   the fusion or LiDAR encoder switched), the eval step at batch 4 in f32
+   (TF32 off: ms per batch, B1 launches) and train steps at batch 4 in f32
+   and bf16 mixed precision as phase 10 times them (losses finite and lower
+   at the last step); (d) the port's ablation CLI at full width, all 21
+   variants PASS, its file in the JAX runner's format; (e) `InferenceEngine`
+   with late fusion and the MLP head on one `SyntheticNuScenesDataset`
+   sample, card against the CPU (cls/box within 1e-4 of their scale, the
+   same label), and its latency_s; (f) B1's f32 path against the cuBLAS
+   matmul/relu/amax chain (TF32 off) at 1x35000x4 and 4x35000x4.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.
@@ -116,6 +136,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -142,7 +163,9 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.config import (
     LidarEncoderSpec,
     TrainSpec,
     load_config,
+    parse_modalities,
 )
+from bevfusion_multimodal_3d_object_detection_tpu_torch import ablation
 from bevfusion_multimodal_3d_object_detection_tpu_torch import eval as eval_cli
 from bevfusion_multimodal_3d_object_detection_tpu_torch import inference as inference_cli
 from bevfusion_multimodal_3d_object_detection_tpu_torch import train_detect
@@ -152,10 +175,12 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.data.converter import wr
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import (
     DataLoader,
     NuScenesDataset,
+    SyntheticNuScenesDataset,
     chunk_plans,
     collate_fn,
 )
 from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
+from bevfusion_multimodal_3d_object_detection_tpu_torch.models import fusion as port_fusion
 from bevfusion_multimodal_3d_object_detection_tpu_torch.models.encoders import PointNetLiDAREncoder
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import _build
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import bev_pool as bp
@@ -288,11 +313,15 @@ def ring_camera_cells(image_size, bev_hw, depth_bins, depth_min, depth_max, pc_r
 
 def randomize_stats(model: torch.nn.Module, g: torch.Generator) -> torch.nn.Module:
     """Non-zero biases and BatchNorm statistics everywhere (the seeded init
-    leaves biases at 0 and BatchNorm at identity): biases ~ N(0, 0.1), BN
-    scale and var in [0.5, 1.5], BN shift and mean ~ N(0, 0.1)."""
+    leaves biases at 0 and BatchNorm and LayerNorm at identity): biases
+    ~ N(0, 0.1), BN and LayerNorm scale and BN var in [0.5, 1.5], BN and
+    LayerNorm shift and BN mean ~ N(0, 0.1)."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)) and m.bias is not None:
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear)) and m.bias is not None:
+                m.bias.normal_(0.0, 0.1, generator=g)
+            elif isinstance(m, torch.nn.LayerNorm):
+                m.weight.uniform_(0.5, 1.5, generator=g)
                 m.bias.normal_(0.0, 0.1, generator=g)
             elif isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
                 m.weight.uniform_(0.5, 1.5, generator=g)
@@ -586,12 +615,11 @@ def serve_main_path(config) -> dict:
     }
 
 
-def time_kernel(encoder, points: np.ndarray) -> dict:
-    """Phase 5: bf16 kernel (median, min and max of 3 timings of 20
-    launches each through the wrapper; achieved TFLOP/s and share of the
-    bound at the median; the device time alone, from a CUDA graph), plain
-    version, cuBLAS chain, and the bound."""
-    dtype = torch.bfloat16
+def time_kernel(encoder, points: np.ndarray, dtype=torch.bfloat16) -> dict:
+    """Phase 5 (bf16) and 13f (f32): the kernel (median, min and max of 3
+    timings of 20 launches each through the wrapper; achieved TFLOP/s and
+    share of the bound at the median; the device time alone, from a CUDA
+    graph), plain version, cuBLAS chain, and the bound."""
     x, w, b = chain_args(encoder, points, dtype, "cuda")
     wb = [v.to(dtype) for v in b]
 
@@ -604,8 +632,9 @@ def time_kernel(encoder, points: np.ndarray) -> dict:
     batch, n, c_in = x.shape
     widths = [c_in] + [wi.shape[1] for wi in w]
     flops = pf.pointnet_flops(batch, n, widths)
-    nbytes = (x.numel() * 2 + sum(wi.numel() * 2 for wi in w) + sum(bi.numel() * 4 for bi in b)
-              + batch * widths[-1] * 2)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (x.numel() * size + sum(wi.numel() * size for wi in w) + sum(bi.numel() * 4 for bi in b)
+              + batch * widths[-1] * size)
     bound = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES) * 1e3
     runs = sorted(time_ms(lambda: pf.pointnet_fused(x, w, b)) for _ in range(3))
     return {
@@ -863,8 +892,6 @@ def time_bev_pools(b2: dict, spec, g: torch.Generator) -> dict:
 # Phases 9 and 10: the train step
 # ---------------------------------------------------------------------------
 
-LOSS_KEYS = ("total_loss", "heatmap_loss", "offset_loss", "size_loss", "rot_loss", "vel_loss")
-
 
 def gt_rows(rng: np.random.RandomState, b: int, m: int, n_real: int, pc_range) -> tuple:
     """(b, m, 7) boxes and (b, m) labels: n_real boxes per sample inside the
@@ -911,9 +938,13 @@ class TrainRun:
     """A model of `dtype` on `device` from a state_dict (and, optionally, an
     AdamW state after one update), with its optimizer and train step."""
 
-    def __init__(self, spec, compat, train_spec, state, device, dtype, adamw_state=None):
+    def __init__(self, spec, compat, train_spec, state, device, dtype, adamw_state=None, dropout=True):
         self.model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding).to(dtype)
         self.model.load_state_dict(state)
+        if not dropout:  # also late fusion's fixed Dropout(0.1), which no config key sets
+            for m in self.model.modules():
+                if isinstance(m, torch.nn.Dropout):
+                    m.p = 0.0
         self.opt = make_optimizer(train_spec, compat)
         self.step = make_train_step(self.model, self.opt, train_spec, compat, check_gradients=True,
                                     device=device)
@@ -943,7 +974,7 @@ def step_errors(got: dict, want: dict, prev_mu, lr: float, what: str, grad_norm_
         if ratio > worst[kind]:
             worst[kind], where[kind] = ratio, name
 
-    for k in LOSS_KEYS + ("grad_norm",):
+    for k in [k for k in want["losses"] if k != "grads_finite"]:  # CenterNet or MLP-head terms
         rtol = grad_norm_rtol if k == "grad_norm" else 1e-5
         note("losses", abs(got["losses"][k] - want["losses"][k]) / (rtol * abs(want["losses"][k])), k)
     largest = max(float(v.abs().max()) for v in want["mu"].values())
@@ -1158,9 +1189,9 @@ def train_breakdown(step, batch, reps: int = 3) -> dict:
     return {k: float(np.median(v)) for k, v in ms.items()}
 
 
-def train_full_width(config) -> dict:
-    """Phase 10: make_train_step on base.yaml at full width, batch 4, in f32
-    and with mixed_precision (bf16 autocast)."""
+def train_full_width(config, label: str = "") -> dict:
+    """Phase 10 (and 13c for the variants): make_train_step on base.yaml at
+    full width, batch 4, in f32 and with mixed_precision (bf16 autocast)."""
     spec, compat = DetectorSpec.from_config(config), CompatFlags.from_config(config)
     ts = TrainSpec.from_config(config)
     rng = np.random.RandomState(9)
@@ -1202,10 +1233,10 @@ def train_full_width(config) -> dict:
             "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                      "cudnn": torch.backends.cudnn.allow_tf32},
         }
-        log(f"  train {name}: {ms:.2f} ms per step of {ts.batch_size} (p50 of 5), "
+        log(f"  train {label}{name}: {ms:.2f} ms per step of {ts.batch_size} (p50 of 5), "
             f"{out[name]['samples_per_s']:.1f} samples/s, {out[name]['max_memory_gib']:.2f} GiB peak, "
             f"loss {losses[0]:.4g} -> {losses[-1]:.4g}; device ms "
-            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + f" [{card()}]")
         del model, opt, step
     return out
 
@@ -1765,6 +1796,308 @@ def entry_points(cfg: dict, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the fusion and head variants
+# ---------------------------------------------------------------------------
+
+# name: (fusion_type, LiDAR encoder); B1 runs both point encoders of the
+# attention and late models, and only the radar's beside VoxelNet
+VARIANTS = {"attention_mlp": ("attention", "PointNet"), "late_mlp": ("late", "PointNet"),
+            "bev_voxelnet": ("bev", "VoxelNet")}
+B1_PER_FORWARD = {"attention_mlp": 2, "late_mlp": 2, "bev_voxelnet": 1}
+
+
+def variant_config(config, name: str, dropout: bool = True) -> dict:
+    """base.yaml with the variant's fusion or LiDAR encoder switched; with
+    `dropout` False the spec's dropout rates are 0."""
+    cfg = copy.deepcopy(config)
+    model = cfg["model"]
+    model["fusion_type"], model["lidar_encoder"]["type"] = VARIANTS[name]
+    if not dropout:
+        for key in ("attention_fusion", "late_fusion", "mlp_head"):
+            model[key]["dropout"] = 0.0
+    return cfg
+
+
+def output_errors(got: dict, want: dict, what: str) -> dict:
+    """Each output's max abs error and scale (its largest magnitude); fails
+    above 1e-4 of the scale."""
+    errs = {}
+    for k, v in want.items():
+        scale = max(v.abs().max().item(), 1e-30)
+        errs[k] = {"max_abs_err": (got[k].float().cpu() - v).abs().max().item(), "scale": scale}
+        if not errs[k]["max_abs_err"] <= 1e-4 * scale:
+            raise AssertionError(f"{what} {k}: card and CPU differ by {errs[k]} (limit 1e-4 of the scale)")
+    return errs
+
+
+@contextlib.contextmanager
+def heads_split_transposed():
+    """A wrong attention: q, k and v split into heads as (b, heads, n,
+    head_dim) without the transpose, and merged back the same way."""
+    plain = port_fusion.CrossModalAttention.forward
+
+    def forward(self, query, key, value):
+        b, n_q, _ = query.shape
+        hd = self.dim // self.num_heads
+        split = lambda t: t.reshape(b, self.num_heads, -1, hd)  # noqa: E731
+        q, k, v = split(self.query(query)), split(self.key(key)), split(self.value(value))
+        attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / hd ** 0.5, dim=-1)
+        return self.out(torch.matmul(attn, v).reshape(b, n_q, self.dim))
+
+    port_fusion.CrossModalAttention.forward = forward
+    try:
+        yield
+    finally:
+        port_fusion.CrossModalAttention.forward = plain
+
+
+def check_small_variants(config) -> dict:
+    """13a: small f32 models of each variant on the card against the CPU,
+    with B1's launches per forward, and the attention mutants rejected."""
+    out = {}
+    for name in VARIANTS:
+        cfg = variant_config(config, name)
+        cfg["model"]["camera_encoder"]["input_size"] = [64, 128]
+        cfg["dataset"]["max_points"] = {"lidar": 1000, "radar_per_sensor": 125}
+        spec = DetectorSpec.from_config(cfg)
+        g = torch.Generator().manual_seed(13)
+        cpu = randomize_stats(MultiModal3DDetector(spec).init_weights(g), g).eval()
+        if spec.head_is_centernet:
+            with torch.no_grad():  # O(1) head outputs, so the comparison bites
+                for m in cpu.det_head.modules():
+                    if isinstance(m, torch.nn.Conv2d):
+                        m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=g)
+        gpu = copy.deepcopy(cpu).cuda()
+        rng = np.random.RandomState(14)
+        inputs = (rng.randn(2, 6, 64, 128, 3).astype(np.float32), lidar_points(rng, 3, 1000)[:2],
+                  np.stack([radar_points(rng, 5, 125)] * 2))
+        with torch.no_grad():
+            pf.pointnet_fused.launches = 0
+            got = gpu(*(torch.from_numpy(a).cuda() for a in inputs))
+            torch.cuda.synchronize()
+            launches = pf.pointnet_fused.launches
+            want = cpu(*(torch.from_numpy(a) for a in inputs))
+        errs = output_errors(got, want, f"small {name}")
+        if launches != B1_PER_FORWARD[name]:
+            raise AssertionError(f"small {name}: B1 launched {launches} times (want {B1_PER_FORWARD[name]})")
+        out[name] = {"errors": errs, "launches": launches}
+        log(f"  small {name}: " + ", ".join(f"{k} {e['max_abs_err']:.3g} of scale {e['scale']:.3g}"
+                                            for k, e in errs.items()) + f"; B1 launches {launches} [{card()}]")
+        if name != "attention_mlp":
+            continue
+        mutants = {}
+        with torch.no_grad(), heads_split_transposed():
+            mutants["heads split transposed"] = gpu(*(torch.from_numpy(a).cuda() for a in inputs))
+        # tokens of small spread, where LayerNorm's epsilon decides: the
+        # projections, embeddings and first attention scaled by 1e-3
+        small = copy.deepcopy(cpu)
+        with torch.no_grad():
+            for pname, p in small.fusion.named_parameters():
+                if pname.startswith(("camera_", "lidar_", "radar_", "cam_", "self_attn_0.")):
+                    p.mul_(1e-3)
+            want_small = small(*(torch.from_numpy(a) for a in inputs))
+            small_gpu = copy.deepcopy(small).cuda()
+            output_errors(small_gpu(*(torch.from_numpy(a).cuda() for a in inputs)), want_small,
+                          "small attention, small tokens")
+            for m in small_gpu.modules():
+                if isinstance(m, torch.nn.LayerNorm):
+                    m.eps = 1e-5
+            mutants["LayerNorm at eps 1e-5"] = (small_gpu(*(torch.from_numpy(a).cuda() for a in inputs)),
+                                                want_small)
+        worst = {}
+        for what, bad in mutants.items():
+            bad, ref = bad if isinstance(bad, tuple) else (bad, want)
+            worst[what] = max((bad[k].float().cpu() - v).abs().max().item() / (1e-4 * v.abs().max().item())
+                              for k, v in ref.items())
+            if worst[what] <= 1.0:
+                raise AssertionError(f"the card-vs-CPU check does not reject the mutant: {what}")
+        out[name]["mutants_times_limit"] = worst
+        log("  mutants rejected at " + ", ".join(f"{k} {v:.3g}x the limit" for k, v in worst.items()))
+    return out
+
+
+def check_small_variant_train(config) -> dict:
+    """13b: one small train step of attention + MLP and late + MLP on the
+    card against the CPU's float64 step (float64; f32 with the CPU's
+    reference on the card's side of every tie), dropout 0, no B1 launch."""
+    out = {}
+    launches = pf.pointnet_fused.launches
+    for name in ("attention_mlp", "late_mlp"):
+        cfg = small_train_config(variant_config(config, name, dropout=False))
+        spec, compat, ts = DetectorSpec.from_config(cfg), CompatFlags.from_config(cfg), TrainSpec.from_config(cfg)
+        g = torch.Generator().manual_seed(17)
+        state0 = randomize_stats(MultiModal3DDetector(spec).init_weights(g), g).state_dict()
+        rng = np.random.RandomState(18)
+        b = train_batch(spec, rng, 2, 16, 5)
+        b["camera_imgs"] = ((b["camera_imgs"] / 255.0 - IMAGENET_MEAN.astype(np.float64))
+                            / IMAGENET_STD.astype(np.float64))
+        run = functools.partial(TrainRun, spec, compat, ts, state0, dropout=False)
+        want = run("cpu", torch.float64)(b)
+        got = run("cuda", torch.float64)(b)
+        worst = {"float64": compare_step(got, want, None, ts.learning_rate, f"{name} float64")}
+        ties = TieSides()
+        with ties.record():
+            got = run("cuda", torch.float32)(b)
+        with ties.replay():
+            want = run("cpu", torch.float64)(b)
+        if not ties.flip_share <= 1e-5:
+            raise AssertionError(f"{name}: the f32 step took the other side of a kink {ties.flip_share:.3g} "
+                                 "of its tensor's largest away")
+        worst["f32"] = compare_step(got, want, None, ts.learning_rate, f"{name} f32", 1e-4)
+        out[name] = dict(worst, f32_ties_across=ties.flips, losses=sorted(got["losses"]))
+        log(f"  small train {name}: worst share of each limit " + json.dumps(out[name]) + f" [{card()}]")
+    if pf.pointnet_fused.launches != launches:
+        raise AssertionError("a variant's train step launched B1")
+    return out
+
+
+def variant_eval_step(cfg: dict, name: str) -> dict:
+    """13c: the eval step at batch 4 in f32 (TF32 off), seeded weights,
+    uint8 cameras: ms per batch (host clock up to a synchronize, 3 batches
+    after one warm-up) and B1's launches."""
+    spec, compat, ts = DetectorSpec.from_config(cfg), CompatFlags.from_config(cfg), TrainSpec.from_config(cfg)
+    g = torch.Generator().manual_seed(19)
+    model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding).init_weights(g)
+    step = make_eval_step(model, compat)
+    batch = train_batch(spec, np.random.RandomState(20), ts.batch_size, ts.max_objects, 40)
+    step(batch)
+    torch.cuda.synchronize()
+    pf.pointnet_fused.launches = 0
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        outputs = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = pf.pointnet_fused.launches
+    if launches != 3 * B1_PER_FORWARD[name]:
+        raise AssertionError(f"{name} eval step: B1 launched {launches} times in 3 batches")
+    if not all(bool(torch.isfinite(v.float()).all()) for v in outputs.values()):
+        raise AssertionError(f"{name} eval step: non-finite outputs")
+    return {"batch": ts.batch_size, "ms": times, "ms_p50": float(np.median(times)), "launches": launches,
+            "outputs": {k: list(v.shape) for k, v in outputs.items()}}
+
+
+def variants_full_width(config) -> dict:
+    """13c for each variant: the eval step, then phase 10's train steps."""
+    out = {}
+    where = card()
+    for name in VARIANTS:
+        cfg = variant_config(config, name)
+        torch.cuda.empty_cache()
+        ev = variant_eval_step(cfg, name)
+        log(f"  {name} eval step: {ev['ms_p50']:.2f} ms per batch of {ev['batch']} (f32, TF32 off; p50 of 3: "
+            f"{', '.join(f'{v:.2f}' for v in ev['ms'])}); B1 launches {ev['launches']} [{where}]")
+        torch.cuda.empty_cache()
+        out[name] = {"eval_step": ev, "train": train_full_width(cfg, f"{name} ")}
+    return out
+
+
+ABLATION_LINE = re.compile(r"^(\S+) +(\S+) +PASS +[\d,]+  \S.*$")
+
+
+def ablation_full_width(tmp: Path) -> dict:
+    """13d: the port's ablation CLI on configs/base.yaml at full width on the
+    card: every variant PASS, its file in the JAX runner's format."""
+    path = tmp / "ablation_results.txt"
+    pf.pointnet_fused.launches = 0
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = ablation.main(["--config", "configs/base.yaml", "--out", str(path), "--device", "cuda"])
+    seconds = time.perf_counter() - t
+    launches = pf.pointnet_fused.launches
+    failed = [r[:3] for r in rows if r[2] != "PASS"]
+    lines = path.read_text().splitlines()
+    if len(rows) != 21 or failed:
+        raise AssertionError(f"ablation: {len(rows)} variants, failed {failed}")
+    if lines[:2] != ["===== Ablation Study =====",
+                     f"{'modality':22s} {'fusion':10s} {'status':6s} {'params':>14s}  outputs"] \
+            or len(lines) != 23 or not all(ABLATION_LINE.match(ln) for ln in lines[2:]):
+        raise AssertionError("ablation: the result file is not in the JAX runner's format")
+    # each variant's forward runs B1 once per point encoder (PointNet LiDAR, radar)
+    want = sum(sum(parse_modalities(r[0])[1:]) for r in rows)
+    if launches != want:
+        raise AssertionError(f"ablation: B1 launched {launches} times (want {want})")
+    return {"variants": len(rows), "seconds": seconds, "launches": launches,
+            "params": {f"{r[0]}/{r[1]}": r[3] for r in rows}, "variant_s": {f"{r[0]}/{r[1]}": r[5] for r in rows}}
+
+
+def engine_late_fusion(config) -> dict:
+    """13e: `InferenceEngine` with late fusion and the MLP head, seeded
+    weights, one synthetic full-width sample, card against the CPU; then
+    latency_s over 5 runs after one."""
+    cfg = variant_config(config, "late_mlp")
+    spec = DetectorSpec.from_config(cfg)
+    sample = SyntheticNuScenesDataset(num_samples=1, image_size=spec.camera.image_size,
+                                      max_points=spec.lidar.max_points,
+                                      max_radar_points=spec.radar.max_points_per_sensor, seed=21)[0]
+    with contextlib.redirect_stdout(io.StringIO()):
+        gpu = InferenceEngine(config=cfg)
+        gpu.init_random()
+        cpu = InferenceEngine(config=cfg, device="cpu")
+        cpu.init_random()
+    pf.pointnet_fused.launches = 0
+    preds_g, _ = gpu._forward(sample)
+    torch.cuda.synchronize()
+    forward_launches = pf.pointnet_fused.launches
+    preds_c, _ = cpu._forward(sample)
+    del cpu
+    errs = output_errors(preds_g, preds_c, "engine late fusion")
+    label_g, label_c = int(preds_g["cls"][0].argmax()), int(preds_c["cls"][0].argmax())
+    if label_g != label_c:
+        raise AssertionError(f"engine late fusion: label {label_g} on the card, {label_c} on the CPU")
+    pf.pointnet_fused.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        runs = [gpu.run_inference(sample, visualize=False) for _ in range(6)]
+    launches = forward_launches + pf.pointnet_fused.launches
+    if forward_launches != 2 or launches != 14:
+        raise AssertionError(f"engine late fusion: B1 launches {forward_launches}, {launches} (want 2, 14)")
+    det = runs[-1]["detections"]
+    if det["boxes"].shape != (1, 7) or int(det["labels"][0]) != label_g:
+        raise AssertionError(f"engine late fusion: detections {det}")
+    latency = [r["latency_s"] for r in runs[1:]]
+    del gpu
+    torch.cuda.empty_cache()
+    return {"card_vs_cpu": errs, "label": label_g, "launches": launches, "latency_s": latency,
+            "latency_s_median": float(np.median(latency))}
+
+
+def b1_f32_yardstick(encoder, rng) -> dict:
+    """13f: B1's f32 path against the cuBLAS chain in f32 (TF32 off) at the
+    engine's 1x35000x4 and the eval step's 4x35000x4, real points in every
+    sample."""
+    out = {}
+    for b in (1, 4):
+        t = time_kernel(encoder, lidar_points(rng, b + 1, 35000)[:b], torch.float32)
+        out[f"lidar_{b}x35000"] = t
+    return out
+
+
+def variants(config, encoders, rng, tmp: Path) -> dict:
+    """Phase 13."""
+    where = card()
+    out = {"small": check_small_variants(config)}
+    out["small_train"] = check_small_variant_train(config)
+    out["full_width"] = variants_full_width(config)
+    out["ablation"] = ablation_full_width(tmp)
+    log(f"  ablation CLI at full width: {out['ablation']['variants']} variants PASS in "
+        f"{out['ablation']['seconds']:.1f} s; B1 launches {out['ablation']['launches']} [{where}]")
+    out["engine"] = engine_late_fusion(config)
+    e = out["engine"]
+    log(f"  engine, late fusion + MLP head: latency_s median {e['latency_s_median']:.4f} s (runs "
+        f"{', '.join(f'{v:.4f}' for v in e['latency_s'])}); card vs CPU cls "
+        f"{e['card_vs_cpu']['cls']['max_abs_err']:.3g}, box {e['card_vs_cpu']['box']['max_abs_err']:.3g}; "
+        f"label {e['label']}; B1 launches {e['launches']} [{where}]")
+    out["b1_f32"] = b1_f32_yardstick(encoders["lidar"], rng)
+    for shape, t in out["b1_f32"].items():
+        log(f"  B1 f32 {shape}: {t['ms']:.4f} ms median of 3 ({t['ms_min']:.4f}-{t['ms_max']:.4f}), "
+            f"{100 * t['bound_share']:.1f}% of the bound ({t['bound_ms']:.4f} ms); device alone "
+            f"{t['device_ms']:.4f} ms; cuBLAS chain (TF32 off) {t['library_ms']:.4f} ms; plain "
+            f"{t['plain_ms']:.4f} ms [{where}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1852,6 +2185,14 @@ def main() -> int:
         entries = entry_points(tree_config, Path(tmp))
         log("  " + json.dumps({"entry_points": entries}))
 
+        log("phase 13: the fusion and head variants (attention and late fusion with the MLP head, bev with "
+            "VoxelNet; TF32 off)")
+        torch.backends.cudnn.allow_tf32 = False
+        t = time.perf_counter()
+        var = variants(config, encoders, rng, Path(tmp))
+        log(f"  phase 13 took {time.perf_counter() - t:.1f} s")
+        log("  " + json.dumps({"variants": var}))
+
     def entry(name, launches, err, t):
         source, replaces = KERNELS[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1869,7 +2210,17 @@ def main() -> int:
              training_entry_point_launches=entry_point["b1_launches"],
              eval_cli_launches=entries["eval_launches"], engine_launches=entries["engine_launches"],
              inference_cli_launches=entries["inference_cli_launches"], http_launches=entries["http_launches"],
-             engine_f32_ms=entries["engine_b1_ms"], engine_f32_bound_ms=entries["engine_b1_bound_ms"]),
+             engine_f32_ms=entries["engine_b1_ms"], engine_f32_bound_ms=entries["engine_b1_bound_ms"],
+             variant_launches={
+                 "small_forwards": {k: v["launches"] for k, v in var["small"].items()},
+                 "small_train_steps": 0,
+                 "eval_steps_3_batches": {k: v["eval_step"]["launches"] for k, v in var["full_width"].items()},
+                 "train_steps": {k: v["train"]["f32"]["launches"]["pointnet_fused"]
+                                 + v["train"]["bf16_mixed_precision"]["launches"]["pointnet_fused"]
+                                 for k, v in var["full_width"].items()},
+                 "ablation_cli": var["ablation"]["launches"], "engine_late": var["engine"]["launches"]},
+             f32={shape: {k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                  for shape, t in var["b1_f32"].items()}),
         # launches: phase 7, the geometric eval path
         entry("bev_pool_weighted", geo["launches"]["bev_pool_weighted_rows"],
               pool_err["bev_pool_weighted"], pools["bev_pool_weighted"]),

@@ -37,6 +37,10 @@ ENTRY_POINT_MODULES = (
     "client", "eval", "inference", "inference_engine", "serve", "serving", "utils.reference_convert",
     "utils.submission",
 )
+# the modules that hold the fusion and head variants, and the ablation runner
+VARIANT_MODULES = (
+    "ablation", "models.detector", "models.encoders", "models.fusion", "models.heads", "ops.losses",
+)
 
 
 def test_port_imports_without_jax():
@@ -46,8 +50,8 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.splitlines()[-1].split())
-    assert len(imported) >= 43  # every module was imported
-    assert {f"{PORT}.{m}" for m in TRAINING_MODULES + ENTRY_POINT_MODULES} <= imported
+    assert len(imported) >= 44  # every module was imported
+    assert {f"{PORT}.{m}" for m in TRAINING_MODULES + ENTRY_POINT_MODULES + VARIANT_MODULES} <= imported
 
 
 @pytest.mark.parametrize("config", ["base.yaml", "bev100.yaml", "base.yaml:geometric", "base.yaml:train"])

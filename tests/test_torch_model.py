@@ -250,8 +250,6 @@ def test_unported_options_raise():
     import dataclasses
 
     spec = to_port_spec(narrow_spec())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_det.MultiModal3DDetector(dataclasses.replace(spec, fusion_type="attention"))
     for mode in ("scatter", "culled"):  # geometric splats not ported yet
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_det.MultiModal3DDetector(dataclasses.replace(spec, bev=dataclasses.replace(

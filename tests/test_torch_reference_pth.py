@@ -3,7 +3,9 @@
 bit for bit, on a reference-layout state_dict of `TorchReferenceDetector`
 (renamed as tests/test_reference_checkpoint.py does); the port's engine and
 InferenceServer restore the `.pth` and agree with the JAX engine restoring
-it; keys of modules the port does not have raise, naming ROADMAP A9.
+it; a module the state_dict holds only in part raises in both packages
+(the attention, late-fusion and MLP-head mappings are held in
+test_torch_variant_entry.py).
 
 Tolerance of the restored models: the prediction maps and the decoded
 scores within 1e-4 of each output's largest magnitude (the port folds the
@@ -118,10 +120,16 @@ def test_engine_and_server_restore_pth_like_jax(pth, config):
     ("det_head.head.0.weight", "MLP head"),
 ])
 def test_unported_modules_raise(state_dict, key, what, tmp_path, config):
+    """The first weight of a module alone (no bias, no other layer): the
+    port's conversion raises the KeyError of JAX's, and the engine's
+    restore fails naming the missing key."""
     sd = dict(state_dict, **{key: torch.zeros(4, 4)})
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A9"):
+    missing = key.replace(".weight", ".bias")
+    with pytest.raises(KeyError, match=missing):
+        jax_convert.convert_reference_checkpoint(sd)
+    with pytest.raises(KeyError, match=missing):
         port_convert.convert_reference_checkpoint(sd)
     path = tmp_path / "other.pth"
     torch.save(sd, path)  # a bare state_dict
-    with pytest.raises(RuntimeError, match=f"failed to restore.*{what}.*A9"):
+    with pytest.raises(RuntimeError, match=f"failed to restore.*{missing}"):
         InferenceEngine(model_path=str(path), config=copy.deepcopy(config), device="cpu")
