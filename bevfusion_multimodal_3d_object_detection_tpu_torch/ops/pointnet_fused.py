@@ -12,6 +12,8 @@ as hand-written CUDA C++ for Hopper (``csrc/pointnet_fused.cu``), built with
 - `pointnet_fused`: the wrapper. A CPU tensor takes the plain version; a CUDA
   tensor launches the kernel or raises. `pointnet_fused.launches` counts the
   kernel launches.
+- `kernel_tile_points`: the kernel's points per tile (bf16: 128; f32: 64,
+  32 or 16, the most whose activation buffers fit in shared memory).
 
 The max runs over exactly the N points given. (The TPU wrapper pads N up to
 a multiple of its block with zero rows, which join the max when
@@ -32,7 +34,9 @@ MAX_LAYERS = 8
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.pointnet_fused_tile_points.argtypes = [ctypes.c_int]
+    lib.pointnet_fused_tile_points.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+    ]
     lib.pointnet_fused_tile_points.restype = ctypes.c_int
     lib.pointnet_fused_forward.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -123,13 +127,13 @@ def pointnet_fused(
     lib = _build.load("pointnet_fused", _declare)
     is_bf16 = int(points.dtype == torch.bfloat16)
     b, n, c_in = points.shape
-    tile = lib.pointnet_fused_tile_points(is_bf16)
+    num_layers = len(weights)
+    widths = (ctypes.c_int * (num_layers + 1))(c_in, *(w.shape[1] for w in weights))
+    tile = lib.pointnet_fused_tile_points(is_bf16, num_layers, widths)
     tiles = -(-n // tile)
     feat = weights[-1].shape[1]
     partial = torch.empty((b, tiles, feat), dtype=torch.float32, device=points.device)
     out = torch.empty((b, feat), dtype=torch.float32, device=points.device)
-    num_layers = len(weights)
-    widths = (ctypes.c_int * (num_layers + 1))(c_in, *(w.shape[1] for w in weights))
     w_ptrs = (ctypes.c_void_p * num_layers)(*(w.data_ptr() for w in weights))
     b_ptrs = (ctypes.c_void_p * num_layers)(*(x.data_ptr() for x in biases))
     with torch.cuda.device(points.device):
@@ -149,6 +153,14 @@ def pointnet_fused(
 
 
 pointnet_fused.launches = 0
+
+
+def kernel_tile_points(dtype: torch.dtype, widths: Sequence[int]) -> int:
+    """Points per tile of the kernel for this working type and chain of
+    widths (C_in, C_1, ..., feat); builds and loads the library."""
+    lib = _build.load("pointnet_fused", _declare)
+    arr = (ctypes.c_int * len(widths))(*widths)
+    return lib.pointnet_fused_tile_points(int(dtype == torch.bfloat16), len(widths) - 1, arr)
 
 
 def pointnet_flops(batch: int, n: int, widths: Sequence[int]) -> int:

@@ -14,10 +14,14 @@ Phases (any failure raises and the script exits non-zero):
    shapes: LiDAR 8x35000x4 -> ...1024 and radar 40x125x7 -> ...256, in
    f32 (TF32 off) and bf16, both mask_padding values, with BatchNorm
    statistics calibrated on the points and random non-zero biases, plus
-   ragged N = 34,999, 34,945 (1 mod the 128-point bf16 tile), 100 and 125
-   with every row a real point, and a 4->48->80->144 chain (partial weight
-   slabs, an FMA first layer). The comparison is shown to reject the plain
-   version with one bias dropped or with zero tiling rows in the max;
+   ragged N = 34,999, 34,945 (1 mod the 128-point bf16 tile), 100, 1 mod
+   and 1 under the f32 tile (64 points for the LiDAR chain) and 125 with
+   every row a real point, a 4->48->80->144 chain (partial weight slabs, an
+   FMA first layer), a 4->32->50->64->96->66 chain (f32 FMA loops around
+   a blocked layer, a ragged last layer) and a 4->64->528->264 chain
+   (partial f32 N-slabs). The comparison is shown to reject
+   the plain version with one bias dropped or with the zero rows of the
+   dtype's own tile in the max;
 3. a small f32 forward + decode of the detector on the card against the
    same weights on the CPU (plain PyTorch path), with random non-zero
    biases and BatchNorm statistics, for the pseudo and the geometric
@@ -125,7 +129,8 @@ Phases (any failure raises and the script exits non-zero):
    with late fusion and the MLP head on one `SyntheticNuScenesDataset`
    sample, card against the CPU (cls/box within 1e-4 of their scale, the
    same label), and its latency_s; (f) B1's f32 path against the cuBLAS
-   matmul/relu/amax chain (TF32 off) at 1x35000x4 and 4x35000x4.
+   matmul/relu/amax chain (TF32 off) at LiDAR 1x35000x4 and 4x35000x4 and
+   radar 5x125x7 and 20x125x7 (the engine's and an eval batch's shapes).
 
 Prints a `kernels` JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.
@@ -386,34 +391,76 @@ def fmt(s: dict) -> str:
             f"max {s['max_ulps']:.3g} bf16 ulps, {100 * s['frac_diff']:.3g}% differ")
 
 
+def b1_encoders(full, g: torch.Generator) -> tuple:
+    """Phase 2's point encoders with calibrated seeded weights: the model's
+    LiDAR and radar ones, a chain whose widths are multiples of 16 but not of
+    B1's weight slabs, one whose widths are not even multiples of 4, and one
+    whose f32 N-slabs of 512 and 256 columns end in a partial one.
+    Returns them and the random state that phase 2 goes on with."""
+    extra = {"chain": (48, 80, 144), "ragged": (32, 50, 64, 96, 66), "wide": (64, 528, 264)}
+    encoders = {"lidar": full.lidar_encoder, "radar": full.radar_encoder.shared_radar}
+    rng, rng_extra = np.random.RandomState(0), np.random.RandomState(1)
+    for name, widths in extra.items():
+        enc = PointNetLiDAREncoder(LidarEncoderSpec(mlp_layers=widths)).eval()
+        with torch.no_grad():
+            for m in enc.modules():
+                if isinstance(m, torch.nn.Linear):
+                    m.weight.normal_(0.0, m.in_features ** -0.5, generator=g)
+        encoders[name] = enc
+        if name == "chain":
+            calibrate_point_mlp(encoders["lidar"].point_mlp, lidar_points(rng, 2, 4096), g)
+            calibrate_point_mlp(encoders["radar"].point_mlp, radar_points(rng, 8, 125), g)
+            calibrate_point_mlp(enc.point_mlp, lidar_points(rng, 2, 4096), g)
+        else:
+            calibrate_point_mlp(enc.point_mlp, lidar_points(rng_extra, 2, 4096), g)
+    return encoders, rng
+
+
 def check_kernel(encoders, rng) -> float:
     """Phase 2: the kernel against its plain version at the serving shapes,
     with O(1) activations and non-zero folded biases, plus ragged LiDAR
-    edges of the bf16 tile (N = 1 mod 128, N < 128) and a chain whose widths
-    are multiples of 16 but not of the 128-column or 32-row weight slabs
-    (4->48->80->144: partial slabs, an FMA first layer). The same comparison
-    must reject the plain version with any one layer's bias dropped, and,
-    where every row is real, with zero tiling rows let into the max.
-    Returns the largest bf16 error (the serving dtype)."""
+    edges of the bf16 tile (N = 1 mod 128, N < 128) and of the f32 tile
+    (N = 1 mod 64, N < 64, where the f32 chain takes 64-point tiles), a chain
+    whose widths are multiples of 16 but not of the 128-column or the weight
+    slabs' rows (4->48->80->144: partial slabs, an FMA first layer), one
+    with widths that are not (4->32->50->64->96->66: the FMA loops before,
+    between and after a blocked f32 layer) and 4->64->528->264 (blocked f32
+    layers of 16 and 8 columns per thread, each ending in a partial
+    N-slab). The same comparison must reject
+    the plain version with any one layer's bias dropped, and, where every
+    row is real, with the zero rows of the dtype's own tile let into the
+    max. Returns the largest bf16 error (the serving dtype)."""
     worst = 0.0
     failures = []
-    tile = _build.load("pointnet_fused", pf._declare).pointnet_fused_tile_points(1)
+    folded = encoders["lidar"].point_mlp.folded()[0]
+    lidar = [folded[0].shape[0]] + [w.shape[1] for w in folded]
+    tile = pf.kernel_tile_points(torch.bfloat16, lidar)
+    tile32 = pf.kernel_tile_points(torch.float32, lidar)
+    log(f"  B1 points per tile for the LiDAR chain: bf16 {tile}, f32 {tile32}")
+    both, f32 = (torch.float32, torch.bfloat16), (torch.float32,)
     cases = [
-        ("lidar", lidar_points(rng, 8, 35000)),
-        ("lidar-dense", dense_points(rng, 2, 34999, 4, 40.0)),
-        ("lidar-dense", dense_points(rng, 2, 273 * tile + 1, 4, 40.0)),
+        ("lidar", lidar_points(rng, 8, 35000), both),
+        ("lidar-dense", dense_points(rng, 2, 34999, 4, 40.0), both),
+        ("lidar-dense", dense_points(rng, 2, 273 * tile + 1, 4, 40.0), both),
         # 40 rows, as radar: at a few hundred GEMM rows cuBLAS sums the f32
         # plain version in another order than the kernel, and on this
         # cancelling cluster either order drifts past the f32 limit
-        ("lidar-dense", dense_points(rng, 40, tile - 28, 4, 40.0)),
-        ("radar", radar_points(rng, 40, 125)),
-        ("radar-dense", dense_points(rng, 40, 125, 7, 2.0)),
-        ("chain", lidar_points(rng, 3, 3 * tile + 44)),
-        ("chain-dense", dense_points(rng, 2, 2 * tile + 1, 4, 40.0)),
+        ("lidar-dense", dense_points(rng, 40, tile - 28, 4, 40.0), both),
+        ("radar", radar_points(rng, 40, 125), both),
+        ("radar-dense", dense_points(rng, 40, 125, 7, 2.0), both),
+        ("chain", lidar_points(rng, 3, 3 * tile + 44), both),
+        ("chain-dense", dense_points(rng, 2, 2 * tile + 1, 4, 40.0), both),
+        # the f32 tile's own edges
+        ("lidar-dense", dense_points(rng, 2, (34000 // tile32) * tile32 + 1, 4, 40.0), f32),
+        ("lidar-dense", dense_points(rng, 64, tile32 - 1, 4, 40.0), f32),
+        ("ragged", lidar_points(rng, 3, 2 * tile + 44), both),
+        ("ragged-dense", dense_points(rng, 40, tile32 + 1, 4, 40.0), both),
+        ("wide", lidar_points(rng, 3, 2 * tile + 44), both),
+        ("wide-dense", dense_points(rng, 40, tile32 + 1, 4, 40.0), both),
     ]
-    for name, pts in cases:
+    for name, pts, dtypes in cases:
         enc = encoders[name.split("-")[0]]
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             x, w, b = chain_args(enc, pts, dtype, "cuda")
             for mask in (False, True):
                 got = pf.pointnet_fused(x, w, b, mask)
@@ -434,8 +481,10 @@ def check_kernel(encoders, rng) -> float:
                 for i in range(len(b))
             }
             if name.endswith("dense"):
-                tiled = torch.cat([x, x.new_zeros(x.shape[0], -x.shape[1] % tile, x.shape[2])], dim=1)
-                mutants["tiling rows in the max"] = pf.pointnet_fused_reference(tiled, w, b, False)
+                own = pf.kernel_tile_points(dtype, [x.shape[2]] + [v.shape[1] for v in w])
+                tiled = torch.cat([x, x.new_zeros(x.shape[0], -x.shape[1] % own, x.shape[2])], dim=1)
+                mutants[f"tiling rows in the max ({own}-point tile)"] = pf.pointnet_fused_reference(
+                    tiled, w, b, False)
             for what, bad in mutants.items():
                 s = compare(bad, want, dtype)
                 log(f"    mutant {what}: {fmt(s)}")
@@ -2063,14 +2112,17 @@ def engine_late_fusion(config) -> dict:
             "latency_s_median": float(np.median(latency))}
 
 
-def b1_f32_yardstick(encoder, rng) -> dict:
+def b1_f32_yardstick(encoders, rng) -> dict:
     """13f: B1's f32 path against the cuBLAS chain in f32 (TF32 off) at the
-    engine's 1x35000x4 and the eval step's 4x35000x4, real points in every
-    sample."""
+    engine's LiDAR 1x35000x4 and radar 5x125x7 and an eval batch's 4x35000x4
+    and 20x125x7, real points in every sample."""
     out = {}
     for b in (1, 4):
-        t = time_kernel(encoder, lidar_points(rng, b + 1, 35000)[:b], torch.float32)
-        out[f"lidar_{b}x35000"] = t
+        out[f"lidar_{b}x35000"] = time_kernel(
+            encoders["lidar"], lidar_points(rng, b + 1, 35000)[:b], torch.float32)
+    for b in (5, 20):
+        out[f"radar_{b}x125"] = time_kernel(
+            encoders["radar"], radar_points(rng, b + 1, 125)[:b], torch.float32)
     return out
 
 
@@ -2089,10 +2141,10 @@ def variants(config, encoders, rng, tmp: Path) -> dict:
         f"{', '.join(f'{v:.4f}' for v in e['latency_s'])}); card vs CPU cls "
         f"{e['card_vs_cpu']['cls']['max_abs_err']:.3g}, box {e['card_vs_cpu']['box']['max_abs_err']:.3g}; "
         f"label {e['label']}; B1 launches {e['launches']} [{where}]")
-    out["b1_f32"] = b1_f32_yardstick(encoders["lidar"], rng)
+    out["b1_f32"] = b1_f32_yardstick(encoders, rng)
     for shape, t in out["b1_f32"].items():
         log(f"  B1 f32 {shape}: {t['ms']:.4f} ms median of 3 ({t['ms_min']:.4f}-{t['ms_max']:.4f}), "
-            f"{100 * t['bound_share']:.1f}% of the bound ({t['bound_ms']:.4f} ms); device alone "
+            f"{t['tflops']:.1f} TFLOP/s, {100 * t['bound_share']:.1f}% of the bound ({t['bound_ms']:.4f} ms); device alone "
             f"{t['device_ms']:.4f} ms; cuBLAS chain (TF32 off) {t['library_ms']:.4f} ms; plain "
             f"{t['plain_ms']:.4f} ms [{where}]")
     return out
@@ -2119,17 +2171,7 @@ def main() -> int:
     spec = DetectorSpec.from_config(config)
     g = torch.Generator().manual_seed(0)
     full = MultiModal3DDetector(spec).init_weights(g).eval()
-    # the chain's widths are multiples of 16 but not of B1's weight slabs
-    chain = PointNetLiDAREncoder(LidarEncoderSpec(mlp_layers=(48, 80, 144))).eval()
-    with torch.no_grad():
-        for m in chain.modules():
-            if isinstance(m, torch.nn.Linear):
-                m.weight.normal_(0.0, m.in_features ** -0.5, generator=g)
-    encoders = {"lidar": full.lidar_encoder, "radar": full.radar_encoder.shared_radar, "chain": chain}
-    rng = np.random.RandomState(0)
-    calibrate_point_mlp(encoders["lidar"].point_mlp, lidar_points(rng, 2, 4096), g)
-    calibrate_point_mlp(encoders["radar"].point_mlp, radar_points(rng, 8, 125), g)
-    calibrate_point_mlp(encoders["chain"].point_mlp, lidar_points(rng, 2, 4096), g)
+    encoders, rng = b1_encoders(full, g)
 
     log("phase 2: B1 against its plain version (TF32 off)")
     max_err = check_kernel(encoders, rng)

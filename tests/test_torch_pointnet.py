@@ -21,6 +21,7 @@ from bevfusion_multimodal_3d_object_detection_tpu.ops.pointnet_pallas import (
     fused_pointnet,
 )
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.pointnet_fused import (
+    kernel_tile_points,
     pointnet_flops,
     pointnet_fused,
     pointnet_fused_reference,
@@ -157,3 +158,36 @@ def test_kernel_matches_reference_on_card(cuda_device):
         got = pointnet_fused(x, wt, bt, mask)
         want = pointnet_fused_reference(x, wt, bt, mask)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_padding", [False, True])
+@pytest.mark.parametrize(
+    "widths,edge",
+    [
+        ((4, 64, 128, 256), "one past a tile"),
+        ((4, 64, 128, 256), "under one tile"),
+        ((4, 32, 50, 64, 96, 66), "one past a tile"),
+        ((4, 64, 528, 264), "one past a tile"),
+    ],
+    ids=["blocked-n1", "blocked-under", "ragged-widths", "partial-n-slabs"],
+)
+def test_f32_kernel_tile_edges_on_card(cuda_device, mask_padding, widths, edge):
+    """The f32 kernel at the edges of its own tile (N = 1 mod it, N below
+    it), on a chain whose widths are not multiples of 4, where FMA loops run
+    before, between and after a register-blocked layer, and on blocked
+    layers whose last N-slab is partial."""
+    tile = kernel_tile_points(torch.float32, widths)
+    assert tile in (16, 32, 64)
+    n = 5 * tile + 1 if edge == "one past a tile" else tile - 1
+    rng = np.random.RandomState(4)
+    ws, bs = _chain(rng, widths)
+    x = torch.from_numpy(_points(rng, 3, n, widths[0])).to(cuda_device)
+    wt = [torch.from_numpy(w).to(cuda_device) for w in ws]
+    bt = [torch.from_numpy(b).to(cuda_device) for b in bs]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = pointnet_fused(x, wt, bt, mask_padding)
+    want = pointnet_fused_reference(x, wt, bt, mask_padding)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    if mask_padding:
+        assert torch.all(got[-1] == 0)  # all-masked row -> 0
