@@ -150,6 +150,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bev_pool_forward.restype = i32
     lib.bev_pool_error_string.argtypes = [i32]
     lib.bev_pool_error_string.restype = ctypes.c_char_p
+    lib.bev_pool_weighted_config.argtypes = [i32, i32, i32, i32, i32, ptr]
+    lib.bev_pool_weighted_config.restype = i32
 
 
 def _check(features, weights, point_idx, local_ids, block_idx, num_cells, num_cells_pad, window):
@@ -212,6 +214,22 @@ def _launch(features, weights: Optional[torch.Tensor], point_idx, local_ids, blo
     if err:
         raise RuntimeError("bev_pool launch failed: " + lib.bev_pool_error_string(err).decode())
     return out
+
+
+def weighted_config(features: torch.Tensor, n_chunks: int) -> Dict[str, int]:
+    """How B2's kernel runs on (X, HW, C) CUDA features with plans of
+    `n_chunks` chunks, launching nothing: `slice_channels` (channels per
+    block of the slice kernel; 0: the gather kernel, for rows too long for
+    shared memory), `blocks_per_sm`, `smem_bytes` per block and `blocks`."""
+    lib = _build.load("bev_pool", _declare)
+    x, rows, c = features.shape
+    config = (ctypes.c_int * 4)()
+    with torch.cuda.device(features.device):
+        err = lib.bev_pool_weighted_config(int(features.dtype == torch.bfloat16), x, rows, n_chunks, c,
+                                           ctypes.addressof(config))
+    if err:
+        raise RuntimeError("bev_pool_weighted_config failed: " + lib.bev_pool_error_string(err).decode())
+    return dict(zip(("slice_channels", "blocks_per_sm", "smem_bytes", "blocks"), config))
 
 
 def bev_pool_weighted_rows(features, weights, point_idx, local_ids, block_idx,

@@ -32,6 +32,17 @@ default):
 ``--f32`` also times the committed kernel at 1x35000 cut to the tiles that
 fill whole waves of one tile per SM, to show what the last wave costs.
 
+``--sweep N`` times nothing: it holds the committed bf16 kernel on phase 2's
+dense 40x100 LiDAR case (one tight cluster per sample, every row a real
+point) over N seeded weight and point sets (seed 0 .. N-1: the LiDAR chain
+4->64->128->256->512->1024 with LeCun-normal weights, BatchNorm calibrated
+on the seed's points, as phase 2 calibrates it), and holds both the kernel
+and the plain bf16 version against a float64 version of the same chain
+(the same bf16 inputs and weights, no rounding between layers), in units of
+phase 2's bf16 limit. Prints one line per seed and, last, a JSON object of
+the largest errors and the seeds where the kernel's error exceeds the plain
+version's.
+
 Every version is built into ``build/b1_ablation/`` (one nvcc each, in
 parallel) and run on phase 2's calibrated seeded weights
 (``chip_smoke.b1_encoders``): in bf16 at the serving shapes (LiDAR
@@ -119,6 +130,8 @@ def _build_all(sources: dict) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--f32", action="store_true", help="ablate and time the f32 path")
+    parser.add_argument("--sweep", type=int, metavar="N",
+                        help="hold bf16 B1 on the dense 40x100 LiDAR case over N seeds against float64")
     parser.add_argument("others", nargs="*", help="other versions of csrc/pointnet_fused.cu")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -130,6 +143,9 @@ def main(argv=None) -> int:
     spec_.loader.exec_module(cs)
     from ..config import DetectorSpec, load_config
     from ..models.detector import MultiModal3DDetector
+
+    if args.sweep:
+        return _sweep(cs, args.sweep)
 
     libs = _build_all(_sources(args.others, F32_ABLATIONS if args.f32 else ABLATIONS))
     current = ["committed"]
@@ -176,6 +192,48 @@ def main(argv=None) -> int:
     if args.f32:
         summary["wave tail"] = _wave_tail(cs, *shapes["lidar 1x35000"], current)
     print(json.dumps(summary))
+    return 0
+
+
+def _float64_chain(x, weights, biases) -> torch.Tensor:
+    """The chain of the plain version in float64 with no rounding between
+    layers, on the same (bf16) inputs and weights; max over every point."""
+    h = x.double()
+    for w, b in zip(weights, biases):
+        h = torch.relu(h @ w.double() + b.double())
+    return h.amax(dim=1)
+
+
+def _sweep(cs, n: int) -> int:
+    from ..config import LidarEncoderSpec
+    from ..models.encoders import PointNetLiDAREncoder
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    dtype, rows = torch.bfloat16, {}
+    for seed in range(n):
+        g, rng = torch.Generator().manual_seed(seed), np.random.RandomState(seed)
+        enc = PointNetLiDAREncoder(LidarEncoderSpec()).eval()
+        with torch.no_grad():
+            for m in enc.modules():
+                if isinstance(m, torch.nn.Linear):
+                    m.weight.normal_(0.0, m.in_features ** -0.5, generator=g)
+        cs.calibrate_point_mlp(enc.point_mlp, cs.lidar_points(rng, 2, 4096), g)
+        x, w, b = cs.chain_args(enc, cs.dense_points(rng, 40, 100, 4, 40.0), dtype, "cuda")
+        got, plain = pf.pointnet_fused(x, w, b), pf.pointnet_fused_reference(x, w, b)
+        exact = _float64_chain(x, w, b).float()
+        row = {"kernel_vs_plain": cs.compare(got, plain, dtype)["worst"],
+               "kernel_vs_f64": cs.compare(got, exact, dtype)["worst"],
+               "plain_vs_f64": cs.compare(plain, exact, dtype)["worst"]}
+        rows[seed] = row
+        print(f"seed {seed}: " + ", ".join(f"{k} {v:.4g}" for k, v in row.items()) + " of the limit", flush=True)
+    worse = [s for s, r in rows.items() if r["kernel_vs_f64"] > r["plain_vs_f64"]]
+    print(json.dumps({
+        "seeds": n, "case": "dense lidar 40x100x4 bf16, mask off",
+        "max": {k: max(r[k] for r in rows.values()) for k in ("kernel_vs_plain", "kernel_vs_f64", "plain_vs_f64")},
+        "seeds_over_limit": [s for s, r in rows.items() if r["kernel_vs_plain"] > 1.0],
+        "seeds_kernel_worse_than_plain_vs_f64": worse,
+    }))
     return 0
 
 

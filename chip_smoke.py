@@ -42,9 +42,14 @@ Phases (any failure raises and the script exits non-zero):
    6-camera ring calibration: B2 on 48 rows of 28x50 pixels, D = 40,
    C = 256, 50x50 cells, in f32 and bf16; B3 on 6 rows x 56,000 points; and
    both at 100x100 cells, where windows are empty and the cell count is not
-   a multiple of the window. The comparison is shown to reject the plain
-   version with every weight 1, with pads gathering a real row, with
-   out-of-range points sent to cell 0, and with one chunk shifted a window;
+   a multiple of the window. B2 also on 12 rows whose longest cell holds
+   30,000 of ~46,500 entries (it spans many of a block's warp segments), in
+   f32 and bf16, and on rows of 16,384 pixels, which take its gather kernel;
+   every B2 launch is repeated and must give the same bits. The comparison
+   is shown to reject the plain version with every weight 1, with pads
+   gathering a real row, with out-of-range points sent to cell 0, with one
+   chunk shifted a window, and with the second half of a row's longest
+   cell dropped;
 7. the geometric eval path: base.yaml with camera_to_bev: geometric and
    splat_mode: pallas, `train.loop.make_eval_step` at full width, bf16,
    batch 8, seeded weights, uint8 cameras and ring-calibration chunk plans
@@ -52,7 +57,8 @@ Phases (any failure raises and the script exits non-zero):
    zeroed just before and read just after. Then ms per batch, samples/s,
    peak memory and a per-module device-time breakdown;
 8. B2 and B3 timings beside the plain versions, a library yardstick
-   (`lift_splat_matmul_rows`; one `index_add_`) and the bound.
+   (`lift_splat_matmul_rows`; one `index_add_`) and the bound; B2's slice
+   width, blocks and blocks per SM, and its time on one sample's 6 rows.
 9. the train step, small, on the card against the CPU, for the pseudo and
    the geometric camera-to-BEV. Each of two steps starts from the same
    state (the CPU's before it) and is held to the CPU's float64 step at the
@@ -707,18 +713,27 @@ def plan_mutants(cells: np.ndarray, plan: list, num_cells: int, n_points: int) -
     """Plans with which the plain version computes what a faulty pool would:
     pads counted (in cell 0 of their window, gathering the last real point),
     out-of-range frustum points sent to cell 0, one non-empty chunk of row 0
-    moved to the next window."""
+    moved to the next window, and the second half of the entries of row 0's
+    longest cell dropped (what losing the part of a cell that later warps
+    hold gives)."""
     pi, li, bi = plan
     pads = li < 0
     real = (li[0] >= 0).any(dim=1) & (bi[0] < bi[0].max())
     k = int(torch.nonzero(real)[0])
     shifted = bi.clone()
     shifted[0, k] += 1
+    entry_cells = torch.where(li[0] >= 0, bi[0][:, None] * bp.DEFAULT_WINDOW + li[0], -1).reshape(-1)
+    longest = int(torch.bincount(entry_cells[entry_cells >= 0]).argmax())
+    where = torch.nonzero(entry_cells == longest).reshape(-1)
+    halved_pi, halved_li = pi.clone(), li.clone()
+    halved_pi[0].view(-1)[where[len(where) // 2:]] = n_points
+    halved_li[0].view(-1)[where[len(where) // 2:]] = -1
     return {
         "pads gather a real row": [torch.where(pads, torch.full_like(pi, n_points - 1), pi),
                                    torch.where(pads, torch.zeros_like(li), li), bi],
         "out-of-range points in cell 0": device_plan(np.maximum(cells, 0), num_cells),
         "one chunk shifted a window": [pi, li, shifted],
+        "second half of the longest cell dropped": [halved_pi, halved_li, bi],
     }
 
 
@@ -727,10 +742,26 @@ def has_empty_window(plan: list) -> bool:
     return any(not (li[r][bi[r] == w] >= 0).any() for r in range(len(bi)) for w in np.unique(bi[r]))
 
 
+def long_cell_cells(rows: int, d: int, hw: int, num_cells: int, seed: int = 12) -> np.ndarray:
+    """(rows, d, hw) frustum cells where 30,000 of each row's points fall in
+    one cell (1234), beside 500 points in cells just before and after it,
+    16,000 spread over the grid and the rest out of range: the cell crosses
+    many of a slice block's warp segments."""
+    rng = np.random.RandomState(seed)
+    ids = np.full((rows, d * hw), -1, np.int32)
+    ids[:, :30000] = 1234
+    ids[:, 30000:30500] = rng.randint(1200, 1300, (rows, 500))
+    ids[:, 40000:] = rng.randint(0, num_cells, (rows, d * hw - 40000))
+    return ids.reshape(rows, d, hw)
+
+
 def check_bev_pools(spec, g: torch.Generator) -> dict:
     """Phase 6: B2 and B3 against their plain versions on ring-calibration
-    plans; the comparison must reject each plain-version mutant. Returns
-    the largest error of each kernel.
+    plans, and B2 on plans whose longest cell spans most of a row and on
+    rows too long for the slice kernel's shared memory (its gather kernel);
+    every B2 launch is repeated and must give the same bits; the comparison
+    must reject each plain-version mutant. Returns the largest error of each
+    kernel.
 
     Kernel and plain version sum the same f32 products in another order, so
     each output's error is a few f32 ulps of the sum of its terms'
@@ -755,29 +786,41 @@ def check_bev_pools(spec, g: torch.Generator) -> dict:
             if s["worst"] <= 1.0:
                 failures.append(f"{kernel} check on {label} does not reject: {what}")
 
-    for bev, rows in ((50, 48), (100, 6)):
-        num_cells = bev * bev
+    def check_weighted(cells, num_cells, hw, c, dtypes, label):
+        rows, d = cells.shape[:2]
         pad = bp.num_cells_padded(num_cells)
-        cells = np.tile(ring_camera_cells(spec.camera.image_size, (bev, bev), d, b.depth_min,
-                                          b.depth_max, b.pc_range), (rows // 6, 1, 1, 1))
         plan = device_plan(cells, num_cells)
-        if bev == 100 and not (num_cells % bp.DEFAULT_WINDOW and has_empty_window(plan)):
-            raise AssertionError("the 100x100 case must have an empty window and a ragged last one")
         n_points = d * hw
         logits = torch.randn(rows, d, hw, device="cuda", generator=g)
         weights = torch.softmax(logits, dim=1).reshape(rows, -1)
         feats = torch.randn(rows, hw, c, device="cuda", generator=g)
         mutant_plans = plan_mutants(cells, plan, num_cells, n_points)
-        for dtype in (torch.float32, torch.bfloat16) if bev == 50 else (torch.float32,):
+        for dtype in dtypes:
             f = feats.to(dtype)
+            config = bp.weighted_config(f, plan[0].shape[1])
             got = bp.bev_pool_weighted_rows(f, weights, *plan, num_cells, pad)
+            if not torch.equal(got, bp.bev_pool_weighted_rows(f, weights, *plan, num_cells, pad)):
+                failures.append(f"bev_pool_weighted: two launches differ on {label} {dtype}")
             ref = lambda w=weights, p=plan, x=f: bp.bev_pool_weighted_reference(x, w, *p, num_cells, pad)
             mutants = {"every weight 1": ref(w=torch.ones_like(weights))}
             mutants.update({k: ref(p=v) for k, v in mutant_plans.items()})
             if dtype == torch.bfloat16:
                 mutants["weights not rounded to bf16"] = ref(x=f.float())
-            judge("bev_pool_weighted", f"{rows}x{hw}x{c} {dtype} {bev}x{bev} cells", got, ref(),
-                  ref(x=f.abs()), mutants)
+            kernel = (f"slice kernel, {config['slice_channels']} channels a slice" if config["slice_channels"]
+                      else "gather kernel")
+            judge("bev_pool_weighted", f"{rows}x{hw}x{c} {dtype} {label} ({kernel}; bit-identical twice)",
+                  got, ref(), ref(x=f.abs()), mutants)
+        return cells, plan, n_points
+
+    for bev, rows in ((50, 48), (100, 6)):
+        num_cells = bev * bev
+        pad = bp.num_cells_padded(num_cells)
+        cells = np.tile(ring_camera_cells(spec.camera.image_size, (bev, bev), d, b.depth_min,
+                                          b.depth_max, b.pc_range), (rows // 6, 1, 1, 1))
+        dtypes = (torch.float32, torch.bfloat16) if bev == 50 else (torch.float32,)
+        cells, plan, n_points = check_weighted(cells, num_cells, hw, c, dtypes, f"{bev}x{bev} cells")
+        if bev == 100 and not (num_cells % bp.DEFAULT_WINDOW and has_empty_window(plan)):
+            raise AssertionError("the 100x100 case must have an empty window and a ragged last one")
         # B3 on the first 6 rows' plans, features per frustum point
         plan6, cells6 = [a[:6] for a in plan], cells[:6]
         pts = torch.randn(6, n_points, c, device="cuda", generator=g)
@@ -786,6 +829,21 @@ def check_bev_pools(spec, g: torch.Generator) -> dict:
         mutants = {k: ref(v) for k, v in plan_mutants(cells6, plan6, num_cells, n_points).items()}
         judge("bev_pool_sorted", f"6x{n_points}x{c} f32 {bev}x{bev} cells", got, ref(),
               ref(x=pts.abs()), mutants)
+
+    # B2 where one cell holds most of each row: it spans many warp segments
+    long_cells = long_cell_cells(12, d, hw, 2500)
+    real = (long_cells >= 0).sum(axis=(1, 2))
+    if not (30000 > real / 4).all():
+        raise AssertionError("the long cell must hold over a quarter of each row's entries")
+    check_weighted(long_cells, 2500, hw, c, (torch.float32, torch.bfloat16), "one cell of 30,000 entries")
+    # B2 on rows of 16,384 pixels: even 16 bytes a pixel exceed a block's
+    # shared memory, so the launch takes the gather kernel
+    rng = np.random.RandomState(13)
+    wide = rng.randint(-1, 900, (2, 2, 16384)).astype(np.int32)
+    if bp.weighted_config(torch.empty(2, 16384, 8, device="cuda"), device_plan(wide, 900)[0].shape[1])[
+            "slice_channels"]:
+        raise AssertionError("rows of 16,384 pixels must take B2's gather kernel")
+    check_weighted(wide, 900, 16384, 8, (torch.float32, torch.bfloat16), "16,384 pixels")
     torch.cuda.synchronize()
     if failures:
         raise AssertionError("; ".join(failures))
@@ -907,8 +965,14 @@ def time_bev_pools(b2: dict, spec, g: torch.Generator) -> dict:
             "busiest_window_entries": max(int(torch.bincount(e // bp.DEFAULT_WINDOW).max()) for e in entry_cells),
             "longest_cell_entries": max(int(torch.bincount(e).max()) for e in entry_cells),
         }
+        # the slice kernel's launch at this shape, and at one sample's 6 rows
+        config = bp.weighted_config(rows, plan[0].shape[1])
+        rows6, probs6, plan6 = rows[:6], probs[:6], [a[:6] for a in plan]
+        config6 = bp.weighted_config(rows6, plan6[0].shape[1])
         out = {"bev_pool_weighted": {
             "ms": time_ms(lambda: bp.bev_pool_weighted_rows(rows, probs, *plan, num_cells, pad)),
+            "ms_6_rows": time_ms(lambda: bp.bev_pool_weighted_rows(rows6, probs6, *plan6, num_cells, pad)),
+            **config, **{f"{k}_6_rows": v for k, v in config6.items()},
             "plain_ms": time_ms(lambda: bp.bev_pool_weighted_reference(rows, probs, *plan, num_cells, pad), 5),
             "library_ms": time_ms(lambda: lift_splat_matmul_rows(feat, logits, cells, num_cells), 5),
             "shape": f"{x}x{hw}x{c} bf16 features, {x}x{probs.shape[1]} weights, "
@@ -2208,6 +2272,11 @@ def main() -> int:
     log("phase 8: B2 and B3 timings")
     pools = time_bev_pools(b2_inputs, spec, g_cuda)
     log("  " + json.dumps(pools))
+    t = pools["bev_pool_weighted"]
+    log(f"  B2 {t['shape']}: {t['ms']:.4f} ms ({t['slice_channels']} channels a slice, {t['blocks']} blocks, "
+        f"{t['blocks_per_sm']} per SM), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+        f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}; 6 rows {t['ms_6_rows']:.4f} ms "
+        f"({t['slice_channels_6_rows']} channels a slice, {t['blocks_6_rows']} blocks)")
 
     log("phase 9: small train step on the card against the CPU (float64; f32 with TF32 off)")
     torch.backends.cudnn.allow_tf32 = False
@@ -2264,8 +2333,10 @@ def main() -> int:
              f32={shape: {k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                   for shape, t in var["b1_f32"].items()}),
         # launches: phase 7, the geometric eval path
-        entry("bev_pool_weighted", geo["launches"]["bev_pool_weighted_rows"],
-              pool_err["bev_pool_weighted"], pools["bev_pool_weighted"]),
+        dict(entry("bev_pool_weighted", geo["launches"]["bev_pool_weighted_rows"],
+                   pool_err["bev_pool_weighted"], pools["bev_pool_weighted"]),
+             **{k: pools["bev_pool_weighted"][k] for k in (
+                 "slice_channels", "blocks", "blocks_per_sm", "ms_6_rows", "slice_channels_6_rows", "blocks_6_rows")}),
         # no model path calls B3 (as in the JAX package): its count stays 0
         entry("bev_pool_sorted", geo["launches"]["bev_pool_rows"],
               pool_err["bev_pool_sorted"], pools["bev_pool_sorted"]),

@@ -4,8 +4,8 @@ PyTorch port against the JAX package.
 The host-side plans and frustum cells must be bit-identical. The pools run
 their plain versions here; the JAX side runs the Pallas kernels in
 interpret mode, as tests/test_bev_pool_pallas.py does. f32 sums in another
-order: tolerance 1e-5. The `cuda`-marked tests hold each kernel against its
-plain version on a card.
+order: tolerance 1e-5. tests/test_torch_kernels_cuda.py holds the kernels
+against their plain versions on a card.
 """
 
 import jax.numpy as jnp
@@ -18,7 +18,6 @@ from bevfusion_multimodal_3d_object_detection_tpu.ops import bev_splat as jax_sp
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import bev_pool
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.bev_splat import precompute_frustum_cells
 from chip_smoke import ring_camera_cells
-from torch_port_helpers import cuda_device  # noqa: F401  (fixture)
 
 TOL = 1e-5
 PC_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
@@ -166,23 +165,3 @@ def test_cpu_path_does_not_count_launches():
     )
     bev_pool.bev_pool_rows(torch.from_numpy(feats), *_port_args(plans), 900, pad)
     assert (bev_pool.bev_pool_weighted_rows.launches, bev_pool.bev_pool_rows.launches) == before
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
-    feats, weights, plans, pad = _weighted_case(6, c=160)
-    f = torch.from_numpy(feats).to(cuda_device, dtype)
-    w = torch.from_numpy(weights).to(cuda_device)
-    args = [a.to(cuda_device) for a in _port_args(plans)]
-    got = bev_pool.bev_pool_weighted_rows(f, w, *args, 900, pad)
-    want = bev_pool.bev_pool_weighted_reference(f, w, *args, 900, pad)
-    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
-    rng = np.random.RandomState(7)
-    pts = torch.from_numpy(rng.randn(2, 576, 160).astype(np.float32)).to(cuda_device, dtype)
-    got = bev_pool.bev_pool_rows(pts, *args, 900, pad)
-    want = bev_pool.bev_pool_sorted_reference(pts, *args, 900, pad)
-    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
-    # the kernel loads 16 bytes of channels at a time: other widths raise
-    with pytest.raises(ValueError, match="multiple of"):
-        bev_pool.bev_pool_rows(pts[..., :6].contiguous(), *args, 900, pad)

@@ -3,7 +3,8 @@
 The port's plain version runs on the CPU; the JAX side is the Pallas kernel
 in interpret mode (as tests/test_pallas_pointnet.py runs it) or, at a ragged
 N, the XLA encoder path. f32 throughout, tolerance 1e-5 (the same f32
-arithmetic in another summation order).
+arithmetic in another summation order). tests/test_torch_kernels_cuda.py
+holds the kernel against its plain version on a card.
 """
 
 import jax.numpy as jnp
@@ -21,12 +22,10 @@ from bevfusion_multimodal_3d_object_detection_tpu.ops.pointnet_pallas import (
     fused_pointnet,
 )
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.pointnet_fused import (
-    kernel_tile_points,
     pointnet_flops,
     pointnet_fused,
     pointnet_fused_reference,
 )
-from torch_port_helpers import cuda_device  # noqa: F401  (fixture)
 
 ATOL = 1e-5
 
@@ -144,50 +143,3 @@ def test_cpu_path_does_not_count_launches():
 def test_flop_count_matches_issue_figure():
     # 35,000 points through 4->64->128->256->512->1024: ~48.8 GFLOP per sample
     assert round(pointnet_flops(1, 35000, (4, 64, 128, 256, 512, 1024)) / 1e9, 1) == 48.8
-
-
-@pytest.mark.cuda
-def test_kernel_matches_reference_on_card(cuda_device):
-    rng = np.random.RandomState(3)
-    ws, bs = _chain(rng, (4, 64, 128, 256))
-    x = torch.from_numpy(_points(rng, 2, 1000, 4)).to(cuda_device)
-    wt = [torch.from_numpy(w).to(cuda_device) for w in ws]
-    bt = [torch.from_numpy(b).to(cuda_device) for b in bs]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    for mask in (False, True):
-        got = pointnet_fused(x, wt, bt, mask)
-        want = pointnet_fused_reference(x, wt, bt, mask)
-        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mask_padding", [False, True])
-@pytest.mark.parametrize(
-    "widths,edge",
-    [
-        ((4, 64, 128, 256), "one past a tile"),
-        ((4, 64, 128, 256), "under one tile"),
-        ((4, 32, 50, 64, 96, 66), "one past a tile"),
-        ((4, 64, 528, 264), "one past a tile"),
-    ],
-    ids=["blocked-n1", "blocked-under", "ragged-widths", "partial-n-slabs"],
-)
-def test_f32_kernel_tile_edges_on_card(cuda_device, mask_padding, widths, edge):
-    """The f32 kernel at the edges of its own tile (N = 1 mod it, N below
-    it), on a chain whose widths are not multiples of 4, where FMA loops run
-    before, between and after a register-blocked layer, and on blocked
-    layers whose last N-slab is partial."""
-    tile = kernel_tile_points(torch.float32, widths)
-    assert tile in (16, 32, 64)
-    n = 5 * tile + 1 if edge == "one past a tile" else tile - 1
-    rng = np.random.RandomState(4)
-    ws, bs = _chain(rng, widths)
-    x = torch.from_numpy(_points(rng, 3, n, widths[0])).to(cuda_device)
-    wt = [torch.from_numpy(w).to(cuda_device) for w in ws]
-    bt = [torch.from_numpy(b).to(cuda_device) for b in bs]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    got = pointnet_fused(x, wt, bt, mask_padding)
-    want = pointnet_fused_reference(x, wt, bt, mask_padding)
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-    if mask_padding:
-        assert torch.all(got[-1] == 0)  # all-masked row -> 0
