@@ -18,7 +18,10 @@ Each has a plain PyTorch version beside it (`bev_pool_weighted_reference`,
 `bev_pool_sorted_reference`: gather by the plan, weight, ``index_add_``).
 A CPU tensor takes the plain version; a CUDA tensor launches the hand-written
 kernel of ``csrc/bev_pool.cu`` (built by ``ops/_build.py``) or raises. Each
-wrapper counts its launches in `.launches`. Both return f32 and round each
+wrapper counts its launches in `.launches`. B3's kernel, which B2 also takes
+for rows too long for shared memory, splits each row over warps and combines
+the cells cut between them through a scratch tensor that the wrapper
+allocates (`sorted_config`). Both return f32 and round each
 weight to the feature dtype before the product, as the TPU kernel does
 (``bev_pool_pallas.py:150``), so kernel and plain version differ only in
 summation order. The kernel relies on the plan's sort (entries of a window
@@ -28,6 +31,7 @@ in cell order), which `precompute_bev_chunks` guarantees.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -145,13 +149,15 @@ def bev_pool_sorted_reference(features, point_idx, local_ids, block_idx,
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.bev_pool_forward.argtypes = [
-        i32, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr,
+        i32, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
     ]
     lib.bev_pool_forward.restype = i32
     lib.bev_pool_error_string.argtypes = [i32]
     lib.bev_pool_error_string.restype = ctypes.c_char_p
     lib.bev_pool_weighted_config.argtypes = [i32, i32, i32, i32, i32, ptr]
     lib.bev_pool_weighted_config.restype = i32
+    lib.bev_pool_sorted_config.argtypes = [i32, i32, i32, i32, i32, i32, i32, ptr]
+    lib.bev_pool_sorted_config.restype = i32
 
 
 def _check(features, weights, point_idx, local_ids, block_idx, num_cells, num_cells_pad, window):
@@ -197,11 +203,16 @@ def _check(features, weights, point_idx, local_ids, block_idx, num_cells, num_ce
 
 
 def _launch(features, weights: Optional[torch.Tensor], point_idx, local_ids, block_idx,
-            num_cells, window) -> torch.Tensor:
+            num_cells, window, scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
     lib = _build.load("bev_pool", _declare)
     x, rows, c = features.shape
     n_chunks, t = point_idx.shape[1:]
     num_points = rows if weights is None else weights.shape[1]
+    if scratch is None:
+        nbytes = _sorted_config(lib, features.device.index, features.dtype == torch.bfloat16,
+                                weights is not None, x, rows, n_chunks, t, c)["scratch_bytes"]
+        if nbytes:
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=features.device)
     out = torch.empty((x, num_cells, c), dtype=torch.float32, device=features.device)
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream(features.device).cuda_stream
@@ -210,16 +221,53 @@ def _launch(features, weights: Optional[torch.Tensor], point_idx, local_ids, blo
             None if weights is None else weights.data_ptr(),
             point_idx.data_ptr(), local_ids.data_ptr(), block_idx.data_ptr(),
             x, n_chunks, t, window, num_cells, num_points, c, out.data_ptr(), stream,
+            None if scratch is None else scratch.data_ptr(),
         )
     if err:
         raise RuntimeError("bev_pool launch failed: " + lib.bev_pool_error_string(err).decode())
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _sorted_config(lib, device_index, is_bf16, weighted, x, rows, n_chunks, t, c) -> Dict[str, int]:
+    config = (ctypes.c_longlong * 5)()
+    with torch.cuda.device(device_index):
+        err = lib.bev_pool_sorted_config(int(is_bf16), int(weighted), x, rows, n_chunks, t, c,
+                                         ctypes.addressof(config))
+    if err:
+        raise RuntimeError("bev_pool_sorted_config failed: " + lib.bev_pool_error_string(err).decode())
+    return dict(zip(("warps", "blocks", "blocks_per_sm", "scratch_bytes", "slices"), config))
+
+
+def sorted_config(features: torch.Tensor, n_chunks: int, chunk_points: int) -> Dict[str, int]:
+    """How B3's kernel runs on (X, P, C) CUDA features with plans of
+    `n_chunks` chunks of `chunk_points`, launching nothing: `warps` (segments
+    a row, one per warp), `blocks` of the grid, `blocks_per_sm`,
+    `scratch_bytes` (each block's sums of its first and last cell and their
+    ids, then each segment's real entries, as `sorted_segments` reads them;
+    allocated by the wrapper at each launch) and channel `slices`."""
+    lib = _build.load("bev_pool", _declare)
+    x, rows, c = features.shape
+    return dict(_sorted_config(lib, features.device.index, features.dtype == torch.bfloat16, False,
+                               x, rows, n_chunks, chunk_points, c))
+
+
+def sorted_segments(features, point_idx, local_ids, block_idx, num_cells, window=DEFAULT_WINDOW):
+    """How B3's kernel split each row, for inspection: launches it once on
+    CUDA tensors (not counted in `bev_pool_rows.launches`) and returns the
+    real entries each warp's segment summed, (X, warps) int32."""
+    _check(features, None, point_idx, local_ids, block_idx, num_cells, None, window)
+    x, _, c = features.shape
+    config = sorted_config(features, *point_idx.shape[1:])
+    scratch = torch.empty(config["scratch_bytes"], dtype=torch.uint8, device=features.device)
+    _launch(features, None, point_idx, local_ids, block_idx, num_cells, window, scratch)
+    return scratch[-x * config["warps"] * 4:].view(torch.int32).reshape(x, config["warps"])
+
+
 def weighted_config(features: torch.Tensor, n_chunks: int) -> Dict[str, int]:
     """How B2's kernel runs on (X, HW, C) CUDA features with plans of
     `n_chunks` chunks, launching nothing: `slice_channels` (channels per
-    block of the slice kernel; 0: the gather kernel, for rows too long for
+    block of the slice kernel; 0: B3's sorted kernel, for rows too long for
     shared memory), `blocks_per_sm`, `smem_bytes` per block and `blocks`."""
     lib = _build.load("bev_pool", _declare)
     x, rows, c = features.shape

@@ -12,7 +12,7 @@ ignores). The copies are made by editing the committed source's text:
 
 - ``no staging``: the slice of the row's features is not copied to shared
   memory; each entry reads its 16 bytes per lane from device memory (L2),
-  as the gather kernel does, with the same segments and combine (no entry
+  as the sorted kernel does, with the same segments and combine (no entry
   reads pixel 0 with weight 0 instead of a row of zeros);
 - ``no combine``: a cut cell is stored with its owner's part only: the later
   warps' parts are dropped, so this copy disagrees by design;
@@ -83,18 +83,20 @@ def _sources(others) -> dict:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    """Declares what every version has, and the config query where it is."""
+    """Declares what every version has, and the config queries where they are."""
     try:
         bp._declare(lib)
-    except AttributeError:  # an earlier version: declared up to the missing config query
-        pass
+    except AttributeError:  # an earlier version, whose launches take no scratch
+        lib.bev_pool_sorted_config = lambda *args: 0  # 0 scratch bytes
 
 
-def _build_all(sources: dict) -> dict:
-    OUT.mkdir(parents=True, exist_ok=True)
+def build_versions(sources: dict, out: Path) -> dict:
+    """Builds each version (name: source text) into `out`, one nvcc each in
+    parallel, prints each kernel's registers and spills, and loads them."""
+    out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, (name, text) in enumerate(sources.items()):
-        cu, lib = OUT / f"v{i}.cu", OUT / f"libv{i}.so"
+        cu, lib = out / f"v{i}.cu", out / f"libv{i}.so"
         cu.write_text(text)
         procs[name] = (lib, subprocess.Popen(
             [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -136,7 +138,7 @@ def main(argv=None) -> int:
     cs = importlib.util.module_from_spec(spec_)
     spec_.loader.exec_module(cs)
 
-    libs = _build_all(_sources(args.others))
+    libs = build_versions(_sources(args.others), OUT)
     current = ["committed"]
     _build.load = lambda name, declare: libs[current[0]]  # the wrapper launches `current`
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -40,16 +40,16 @@ Phases (any failure raises and the script exits non-zero):
 6. B2 (weighted BEV pool) and B3 (sorted BEV pool) against their plain
    versions (TF32 off), per element, on plans of bench_kernels.py's
    6-camera ring calibration: B2 on 48 rows of 28x50 pixels, D = 40,
-   C = 256, 50x50 cells, in f32 and bf16; B3 on 6 rows x 56,000 points; and
+   C = 256, 50x50 cells, and B3 on 6 rows x 56,000 points, in f32 and bf16;
    both at 100x100 cells, where windows are empty and the cell count is not
-   a multiple of the window. B2 also on 12 rows whose longest cell holds
-   30,000 of ~46,500 entries (it spans many of a block's warp segments), in
-   f32 and bf16, and on rows of 16,384 pixels, which take its gather kernel;
-   every B2 launch is repeated and must give the same bits. The comparison
-   is shown to reject the plain version with every weight 1, with pads
-   gathering a real row, with out-of-range points sent to cell 0, with one
-   chunk shifted a window, and with the second half of a row's longest
-   cell dropped;
+   a multiple of the window, and on rows whose longest cell holds 30,000 of
+   ~46,500 entries (B2: 12 rows, f32 and bf16, the cell across many of a
+   block's warp segments; B3: 6 rows, f32, across many blocks); B2 also on
+   rows of 16,384 pixels, which take B3's sorted kernel; every launch is
+   repeated and must give the same bits. The comparison is shown to reject
+   the plain version with every weight 1, with pads gathering a real row,
+   with out-of-range points sent to cell 0, with one chunk shifted a
+   window, and with the second half of a row's longest cell dropped;
 7. the geometric eval path: base.yaml with camera_to_bev: geometric and
    splat_mode: pallas, `train.loop.make_eval_step` at full width, bf16,
    batch 8, seeded weights, uint8 cameras and ring-calibration chunk plans
@@ -58,7 +58,10 @@ Phases (any failure raises and the script exits non-zero):
    peak memory and a per-module device-time breakdown;
 8. B2 and B3 timings beside the plain versions, a library yardstick
    (`lift_splat_matmul_rows`; one `index_add_`) and the bound; B2's slice
-   width, blocks and blocks per SM, and its time on one sample's 6 rows.
+   width, blocks and blocks per SM, and its time on one sample's 6 rows;
+   B3's warps a row, blocks, blocks per SM and scratch, the real entries of
+   its busiest warp against its row's mean, its device time alone, and its
+   time and bound on phase 6's long-cell plan.
 9. the train step, small, on the card against the CPU, for the pseudo and
    the geometric camera-to-BEV. Each of two steps starts from the same
    state (the CPU's before it) and is held to the CPU's float64 step at the
@@ -757,9 +760,9 @@ def long_cell_cells(rows: int, d: int, hw: int, num_cells: int, seed: int = 12) 
 
 def check_bev_pools(spec, g: torch.Generator) -> dict:
     """Phase 6: B2 and B3 against their plain versions on ring-calibration
-    plans, and B2 on plans whose longest cell spans most of a row and on
-    rows too long for the slice kernel's shared memory (its gather kernel);
-    every B2 launch is repeated and must give the same bits; the comparison
+    plans and on plans whose longest cell spans most of a row, and B2 on
+    rows too long for the slice kernel's shared memory (B3's sorted kernel);
+    every launch is repeated and must give the same bits; the comparison
     must reject each plain-version mutant. Returns the largest error of each
     kernel.
 
@@ -807,42 +810,54 @@ def check_bev_pools(spec, g: torch.Generator) -> dict:
             if dtype == torch.bfloat16:
                 mutants["weights not rounded to bf16"] = ref(x=f.float())
             kernel = (f"slice kernel, {config['slice_channels']} channels a slice" if config["slice_channels"]
-                      else "gather kernel")
+                      else "sorted kernel")
             judge("bev_pool_weighted", f"{rows}x{hw}x{c} {dtype} {label} ({kernel}; bit-identical twice)",
                   got, ref(), ref(x=f.abs()), mutants)
         return cells, plan, n_points
 
+    def check_sorted(cells, plan, num_cells, dtypes, label):
+        """B3 on 6 rows of the plans, features per frustum point."""
+        pad = bp.num_cells_padded(num_cells)
+        plan6, cells6 = [a[:6] for a in plan], cells[:6]
+        n_points = cells6[0].size
+        pts = torch.randn(6, n_points, c, device="cuda", generator=g)
+        mutant_plans = plan_mutants(cells6, plan6, num_cells, n_points)
+        for dtype in dtypes:
+            x = pts.to(dtype)
+            got = bp.bev_pool_rows(x, *plan6, num_cells, pad)
+            if not torch.equal(got, bp.bev_pool_rows(x, *plan6, num_cells, pad)):
+                failures.append(f"bev_pool_sorted: two launches differ on {label} {dtype}")
+            ref = lambda p=plan6, x=x: bp.bev_pool_sorted_reference(x, *p, num_cells, pad)
+            mutants = {k: ref(v) for k, v in mutant_plans.items()}
+            judge("bev_pool_sorted", f"6x{n_points}x{c} {dtype} {label} (bit-identical twice)", got, ref(),
+                  ref(x=x.abs()), mutants)
+
     for bev, rows in ((50, 48), (100, 6)):
         num_cells = bev * bev
-        pad = bp.num_cells_padded(num_cells)
         cells = np.tile(ring_camera_cells(spec.camera.image_size, (bev, bev), d, b.depth_min,
                                           b.depth_max, b.pc_range), (rows // 6, 1, 1, 1))
         dtypes = (torch.float32, torch.bfloat16) if bev == 50 else (torch.float32,)
         cells, plan, n_points = check_weighted(cells, num_cells, hw, c, dtypes, f"{bev}x{bev} cells")
         if bev == 100 and not (num_cells % bp.DEFAULT_WINDOW and has_empty_window(plan)):
             raise AssertionError("the 100x100 case must have an empty window and a ragged last one")
-        # B3 on the first 6 rows' plans, features per frustum point
-        plan6, cells6 = [a[:6] for a in plan], cells[:6]
-        pts = torch.randn(6, n_points, c, device="cuda", generator=g)
-        got = bp.bev_pool_rows(pts, *plan6, num_cells, pad)
-        ref = lambda p=plan6, x=pts: bp.bev_pool_sorted_reference(x, *p, num_cells, pad)
-        mutants = {k: ref(v) for k, v in plan_mutants(cells6, plan6, num_cells, n_points).items()}
-        judge("bev_pool_sorted", f"6x{n_points}x{c} f32 {bev}x{bev} cells", got, ref(),
-              ref(x=pts.abs()), mutants)
+        check_sorted(cells, plan, num_cells, dtypes, f"{bev}x{bev} cells")
 
-    # B2 where one cell holds most of each row: it spans many warp segments
+    # B2 and B3 where one cell holds most of each row: it spans many warp
+    # segments (B2) and many blocks (B3)
     long_cells = long_cell_cells(12, d, hw, 2500)
     real = (long_cells >= 0).sum(axis=(1, 2))
     if not (30000 > real / 4).all():
         raise AssertionError("the long cell must hold over a quarter of each row's entries")
-    check_weighted(long_cells, 2500, hw, c, (torch.float32, torch.bfloat16), "one cell of 30,000 entries")
+    label = "one cell of 30,000 entries"
+    _, long_plan, _ = check_weighted(long_cells, 2500, hw, c, (torch.float32, torch.bfloat16), label)
+    check_sorted(long_cells, long_plan, 2500, (torch.float32,), label)
     # B2 on rows of 16,384 pixels: even 16 bytes a pixel exceed a block's
-    # shared memory, so the launch takes the gather kernel
+    # shared memory, so the launch takes B3's sorted kernel
     rng = np.random.RandomState(13)
     wide = rng.randint(-1, 900, (2, 2, 16384)).astype(np.int32)
     if bp.weighted_config(torch.empty(2, 16384, 8, device="cuda"), device_plan(wide, 900)[0].shape[1])[
             "slice_channels"]:
-        raise AssertionError("rows of 16,384 pixels must take B2's gather kernel")
+        raise AssertionError("rows of 16,384 pixels must take the sorted kernel")
     check_weighted(wide, 900, 16384, 8, (torch.float32, torch.bfloat16), "16,384 pixels")
     torch.cuda.synchronize()
     if failures:
@@ -936,9 +951,10 @@ def geometric_eval_path(config) -> tuple:
 
 def time_bev_pools(b2: dict, spec, g: torch.Generator) -> dict:
     """Phase 8: B2 at the phase 7 shape (bf16) and B3 at the phase 6 shape
-    (f32): kernel, plain version, library yardstick and the bound, from the
-    bytes and operations this run's plans need (plan entries read once,
-    features and weights only where a real entry points, output once)."""
+    (f32), and on phase 6's long-cell plans: kernel, plain version, library
+    yardstick and the bound, from the bytes and operations this run's plans
+    need (plan entries read once, features and weights only where a real
+    entry points, output once)."""
     num_cells = spec.bev.bev_h * spec.bev.bev_w
     pad = bp.num_cells_padded(num_cells)
 
@@ -981,7 +997,8 @@ def time_bev_pools(b2: dict, spec, g: torch.Generator) -> dict:
             **bound(plan, n_real * 2, n_pix * c * 2, x * num_cells * c * 4, 2 * n_real * c),
         }}
 
-        # B3: 6 rows of per-point f32 features on the first 6 rows' plans
+        # B3: 6 rows of per-point f32 features on the first 6 rows' plans,
+        # then on phase 6's long-cell plans (30,000 entries of a row in one cell)
         plan6 = [a[:6] for a in plan]
         n_points = probs.shape[1]
         pts = torch.randn(6, n_points, c, device="cuda", generator=g)
@@ -989,14 +1006,34 @@ def time_bev_pools(b2: dict, spec, g: torch.Generator) -> dict:
         dest = (torch.where(cells6 < 0, torch.full_like(cells6, num_cells), cells6)
                 + torch.arange(6, device="cuda")[:, None] * (num_cells + 1)).reshape(-1)
         src = pts.reshape(-1, c)
-        real6 = int((plan6[1] >= 0).sum())
+
+        def sorted_run(p):
+            """B3's launch, its split (real entries of the busiest warp over
+            its row's mean) and its bound on plans `p`."""
+            real = p[1] >= 0
+            n_real = int(real.sum())
+            entries = bp.sorted_segments(pts, *p, num_cells).float()
+            return {
+                **bp.sorted_config(pts, *p[0].shape[1:]),
+                "busiest_warp_share": float((entries.amax(1) / entries.mean(1)).max()),
+                "real_entries": n_real,
+                **bound(p, 0, n_real * c * 4, 6 * num_cells * c * 4, n_real * c),
+            }
+
+        long_plan = device_plan(long_cell_cells(6, spec.bev.depth_bins, hw, num_cells), num_cells)
+        long_run = sorted_run(long_plan)
         out["bev_pool_sorted"] = {
             "ms": time_ms(lambda: bp.bev_pool_rows(pts, *plan6, num_cells, pad)),
+            "device_ms": graph_ms(lambda: bp.bev_pool_rows(pts, *plan6, num_cells, pad)),
             "plain_ms": time_ms(lambda: bp.bev_pool_sorted_reference(pts, *plan6, num_cells, pad), 5),
             "library_ms": time_ms(lambda: torch.zeros(6 * (num_cells + 1), c, device="cuda").index_add_(
                 0, dest, src)),
             "shape": f"6x{n_points}x{c} f32, {num_cells} cells",
-            **bound(plan6, 0, real6 * c * 4, 6 * num_cells * c * 4, real6 * c),
+            **sorted_run(plan6),
+            "long_cell_ms": time_ms(lambda: bp.bev_pool_rows(pts, *long_plan, num_cells, pad)),
+            "long_cell_device_ms": graph_ms(lambda: bp.bev_pool_rows(pts, *long_plan, num_cells, pad)),
+            "long_cell_bound_ms": long_run["bound_ms"],
+            "long_cell_busiest_warp_share": long_run["busiest_warp_share"],
         }
     return out
 
@@ -2277,6 +2314,12 @@ def main() -> int:
         f"{t['blocks_per_sm']} per SM), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
         f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}; 6 rows {t['ms_6_rows']:.4f} ms "
         f"({t['slice_channels_6_rows']} channels a slice, {t['blocks_6_rows']} blocks)")
+    t = pools["bev_pool_sorted"]
+    log(f"  B3 {t['shape']}: {t['ms']:.4f} ms, device alone {t['device_ms']:.4f} ({t['warps']} warps a row, "
+        f"{t['blocks']} blocks, {t['blocks_per_sm']} per SM, busiest warp {t['busiest_warp_share']:.3f}x its "
+        f"row's mean), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain {t['plain_ms']:.4f}, index_add_ "
+        f"{t['library_ms']:.4f}; long cell {t['long_cell_ms']:.4f} ms, device alone "
+        f"{t['long_cell_device_ms']:.4f}, bound {t['long_cell_bound_ms']:.4f}")
 
     log("phase 9: small train step on the card against the CPU (float64; f32 with TF32 off)")
     torch.backends.cudnn.allow_tf32 = False
@@ -2338,8 +2381,11 @@ def main() -> int:
              **{k: pools["bev_pool_weighted"][k] for k in (
                  "slice_channels", "blocks", "blocks_per_sm", "ms_6_rows", "slice_channels_6_rows", "blocks_6_rows")}),
         # no model path calls B3 (as in the JAX package): its count stays 0
-        entry("bev_pool_sorted", geo["launches"]["bev_pool_rows"],
-              pool_err["bev_pool_sorted"], pools["bev_pool_sorted"]),
+        dict(entry("bev_pool_sorted", geo["launches"]["bev_pool_rows"],
+                   pool_err["bev_pool_sorted"], pools["bev_pool_sorted"]),
+             **{k: pools["bev_pool_sorted"][k] for k in (
+                 "device_ms", "warps", "blocks", "blocks_per_sm", "scratch_bytes", "busiest_warp_share",
+                 "long_cell_ms", "long_cell_device_ms", "long_cell_bound_ms", "long_cell_busiest_warp_share")}),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -27,10 +27,15 @@ PLAN_KEYS = ("point_idx", "local_ids", "block_idx")
 def _ids(kind, rng, p, num_cells):
     if kind == "ring":
         return ring_camera_cells((448, 800), (50, 50), 40, 1.0, 60.0, PC_RANGE)[2].reshape(-1)
-    if kind == "random":
+    if kind in ("random", "bf16"):
         ids = rng.randint(0, num_cells, p).astype(np.int32)
         ids[rng.rand(p) < 0.3] = -1
         return ids
+    if kind == "long cell":  # 60 % of the points in one cell, a few in its neighbours
+        ids = rng.randint(0, num_cells, p).astype(np.int32)
+        ids[: 6 * p // 10] = 450
+        ids[6 * p // 10: 7 * p // 10] = rng.randint(440, 460, p // 10)
+        return rng.permutation(ids)
     return np.full(p, -1, np.int32)  # every point out of range
 
 
@@ -111,20 +116,32 @@ def test_weighted_pool_rounds_weights_to_bf16_features():
     assert np.abs(unrounded - want).max() > 100 * TOL  # the rounding is seen
 
 
-@pytest.mark.parametrize("kind", ["random", "all-out-of-range"])
+@pytest.mark.parametrize("kind", ["random", "all-out-of-range", "long cell", "bf16"])
 def test_sorted_pool_matches_jax(kind):
+    """Random cells, none in range, one cell holding 60 % of each row (it
+    spans many chunks of a window), and bf16 features: JAX's bf16 products
+    are exact and summed in f32, the port's plain version gathers the bf16
+    features and sums them in f32."""
     rng = np.random.RandomState(2)
     p, c, num_cells = 1000, 16, 900
     feats = rng.randn(2, p, c).astype(np.float32)
     plans, pad = _plans([_ids(kind, rng, p, num_cells) for _ in range(2)], num_cells)
+    dtype = (jnp.bfloat16, torch.bfloat16) if kind == "bf16" else (jnp.float32, torch.float32)
     want = np.asarray(jax_pool.bev_pool_rows(
-        jnp.asarray(feats), *(jnp.asarray(plans[k]) for k in PLAN_KEYS),
+        jnp.asarray(feats, dtype[0]), *(jnp.asarray(plans[k]) for k in PLAN_KEYS),
         num_cells=num_cells, num_cells_pad=pad, interpret=True,
     ))
-    got = bev_pool.bev_pool_rows(torch.from_numpy(feats), *_port_args(plans), num_cells, pad)
+    got = bev_pool.bev_pool_rows(torch.from_numpy(feats).to(dtype[1]), *_port_args(plans), num_cells, pad)
+    assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
     if kind == "all-out-of-range":
         assert np.all(got.numpy() == 0.0)
+    if kind == "long cell":
+        assert (plans["local_ids"] >= 0).sum(2).max() == plans["local_ids"].shape[2]  # full chunks
+        assert np.abs(want[:, 450]).max() > 10  # the long cell's sum is there
+    if kind == "bf16":  # the features are rounded to bf16 before the sum
+        f32 = bev_pool.bev_pool_rows(torch.from_numpy(feats), *_port_args(plans), num_cells, pad).numpy()
+        assert np.abs(f32 - want).max() > 100 * TOL
 
 
 def test_cells_past_num_cells_are_dropped():

@@ -131,10 +131,15 @@ def _on(device, plans):
 
 
 def _assert_pool_close(got, features, weights, plan, num_cells, pad):
-    """`got` against the plain B2 within TOL of the sum of each output's terms'
-    magnitudes (plus 2^-4 of their mean), as phase 6 of chip_smoke.py."""
-    want = bev_pool.bev_pool_weighted_reference(features, weights, *plan, num_cells, pad)
-    scale = bev_pool.bev_pool_weighted_reference(features.abs(), weights, *plan, num_cells, pad)
+    """`got` against the plain B2 (B3 where `weights` is None) within TOL of
+    the sum of each output's terms' magnitudes (plus 2^-4 of their mean), as
+    phase 6 of chip_smoke.py."""
+    if weights is None:
+        want = bev_pool.bev_pool_sorted_reference(features, *plan, num_cells, pad)
+        scale = bev_pool.bev_pool_sorted_reference(features.abs(), *plan, num_cells, pad)
+    else:
+        want = bev_pool.bev_pool_weighted_reference(features, weights, *plan, num_cells, pad)
+        scale = bev_pool.bev_pool_weighted_reference(features.abs(), weights, *plan, num_cells, pad)
     limit = TOL * (scale + 2.0 ** -4 * scale.mean())
     assert got.shape == want.shape and got.dtype == torch.float32
     worst = ((got - want).abs() / limit.clamp_min(1e-30)).max().item()
@@ -174,12 +179,12 @@ def _long_cell_case(rows=2, hw=1400, d=40, c=256):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["long cell across segments", "6 ring rows", "gather variant"])
+@pytest.mark.parametrize("case", ["long cell across segments", "6 ring rows", "sorted kernel variant"])
 def test_weighted_pool_kernel_cases_on_card(cuda_device, dtype, case):
     """B2 where one cell spans several warp segments (combined in the block),
     at 6 ring-calibration rows (fewer blocks than SMs: narrower slices), and
-    at rows too long for shared memory (the gather kernel); each within TOL
-    of the terms' magnitudes, and two launches equal bit for bit."""
+    at rows too long for shared memory (B3's sorted kernel, weighted); each
+    within TOL of the terms' magnitudes, and two launches equal bit for bit."""
     if case == "long cell across segments":
         feats, weights, plans, pad = _long_cell_case()
         num_cells = 2500
@@ -198,10 +203,67 @@ def test_weighted_pool_kernel_cases_on_card(cuda_device, dtype, case):
     w = torch.from_numpy(weights).to(cuda_device)
     plan = _on(cuda_device, plans)
     config = bev_pool.weighted_config(f, plan[0].shape[1])
-    assert (config["slice_channels"] == 0) == (case == "gather variant"), config
+    assert (config["slice_channels"] == 0) == (case == "sorted kernel variant"), config
     got = bev_pool.bev_pool_weighted_rows(f, w, *plan, num_cells, pad)
     _assert_pool_close(got, f, w, plan, num_cells, pad)
     assert torch.equal(got, bev_pool.bev_pool_weighted_rows(f, w, *plan, num_cells, pad))
+
+
+SORTED_CASES = ["long cell across segments and blocks", "6 ring rows", "100x100 cells", "cells past num_cells"]
+
+
+def _sorted_case(case):
+    """Frustum cells (X, P) and num_cells of a B3 case: 6 rows of 56,000
+    points (40 depth bins over 28x50 pixels) on the ring calibration, at
+    50x50 or 100x100 cells (empty windows, a ragged last one), or with
+    30,000 of each row's points in one cell; or 2 rows of 3,000 points over
+    1024 cells pooled into 1000."""
+    if case == "cells past num_cells":
+        return np.random.RandomState(11).randint(-1, 1024, (2, 3000)).astype(np.int32), 1000
+    if case == "long cell across segments and blocks":
+        return long_cell_cells(6, 40, 1400, 2500).reshape(6, -1), 2500
+    bev = 100 if case == "100x100 cells" else 50
+    return ring_camera_cells((448, 800), (bev, bev), 40, 1.0, 60.0, PC_RANGE).reshape(6, -1), bev * bev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SORTED_CASES)
+def test_sorted_pool_kernel_cases_on_card(cuda_device, dtype, case):
+    """B3 on per-point features (C = 256) where one cell spans many warps of
+    several blocks, at 6 ring-calibration rows (the grid fills the card's
+    SMs), at 100x100 cells and with cells past num_cells: within TOL of the
+    terms' magnitudes, two launches equal bit for bit, every real entry
+    summed by exactly one warp, and no warp with more than 1.2x its row's
+    mean real entries."""
+    cells, num_cells = _sorted_case(case)
+    plans, pad = _plans(cells, num_cells)
+    plan = _on(cuda_device, plans)
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    f = torch.randn(cells.shape[0], cells.shape[1], 256, device=cuda_device, generator=g).to(dtype)
+    got = bev_pool.bev_pool_rows(f, *plan, num_cells, pad)
+    _assert_pool_close(got, f, None, plan, num_cells, pad)
+    assert torch.equal(got, bev_pool.bev_pool_rows(f, *plan, num_cells, pad))
+    config = bev_pool.sorted_config(f, *plan[0].shape[1:])
+    real = bev_pool.sorted_segments(f, *plan, num_cells).cpu()
+    assert real.shape == (cells.shape[0], config["warps"])
+    lid, bidx = plans["local_ids"], plans["block_idx"]
+    entry_cells = np.where(lid >= 0, bidx[..., None] * bev_pool.DEFAULT_WINDOW + lid, -1)
+    assert np.array_equal(real.sum(1).numpy(), ((entry_cells >= 0) & (entry_cells < num_cells)).sum((1, 2)))
+    if cells.shape[0] == 6:
+        assert config["blocks"] >= torch.cuda.get_device_properties(cuda_device).multi_processor_count, config
+        share = (real.amax(1).float() / real.float().mean(1)).max().item()
+        assert share <= 1.2, f"the busiest warp holds {share:.3f}x its row's mean real entries"
+
+
+def test_b3_ablation_edits_apply():
+    """Every ablated copy of tools/b3_ablation.py is made from the committed
+    source's text, and each edit changes it."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.tools import b3_ablation
+
+    sources = b3_ablation._sources([])
+    assert set(sources) == {"committed", *b3_ablation.ABLATIONS}
+    assert len(set(sources.values())) == len(sources)
 
 
 def test_b2_ablation_edits_apply():
