@@ -2,10 +2,10 @@
 
 The port's own copy of the JAX package's config parsing
 (``bevfusion_multimodal_3d_object_detection_tpu/config.py:74-510`` and
-``:582-698``): the same YAML schema, the same ``compat:`` defaults and the same
-frozen dataclasses, so one ``configs/*.yaml`` drives both packages. The model
-specs, `TrainSpec` and `DataSpec` are kept; `AugmentSpec` and `ParallelSpec`
-come with the slices that read them (augmentation, parallelism).
+``:582-738``): the same YAML schema, the same ``compat:`` defaults and the same
+frozen dataclasses, so one ``configs/*.yaml`` drives both packages: the model
+specs, `TrainSpec`, `DataSpec` and `AugmentSpec`. `ParallelSpec` comes with
+the slice that reads it (parallelism, ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -660,4 +660,43 @@ class TrainSpec:
             resume_path=resume.get("checkpoint_path"),
             ckpt_backend=ckpt.get("backend", "msgpack"),
             resume_auto=resume.get("auto", True),
+        )
+
+
+@dataclass(frozen=True)
+class AugmentSpec:
+    """The ``dataset.augmentation`` block (configs/base.yaml:81-99), applied
+    in the train step only with ``compat.skip_augmentation`` off (Q14).
+    ``lidar_flip`` is parsed and read by nothing, as in the JAX package."""
+
+    camera_enable: bool = True
+    lidar_enable: bool = True
+    radar_enable: bool = True
+    brightness: float = 0.2
+    contrast: float = 0.2
+    saturation: float = 0.2
+    scale_min: float = 0.95
+    scale_max: float = 1.05
+    lidar_flip: bool = True
+    noise_std: float = 0.01
+
+    @staticmethod
+    def from_config(cfg: Optional[Dict]) -> "AugmentSpec":
+        a = _get(cfg, "dataset", "augmentation", default={}) or {}
+        cam = a.get("camera", {}) or {}
+        jitter = cam.get("color_jitter", {}) or {}
+        lid = a.get("lidar", {}) or {}
+        scale = lid.get("random_scale", (0.95, 1.05))
+        rad = a.get("radar", {}) or {}
+        return AugmentSpec(
+            camera_enable=cam.get("enable", True),
+            lidar_enable=lid.get("enable", True),
+            radar_enable=rad.get("enable", True),
+            brightness=jitter.get("brightness", 0.2),
+            contrast=jitter.get("contrast", 0.2),
+            saturation=jitter.get("saturation", 0.2),
+            scale_min=scale[0],
+            scale_max=scale[1],
+            lidar_flip=lid.get("random_flip", True),
+            noise_std=rad.get("noise_std", 0.01),
         )

@@ -6,7 +6,8 @@ The port's own copies from
 - `quat_normalize`, `quat_inverse`, `quat_multiply`, `quat_rotation_matrix`
   and `quat_yaw` (``:56-93``), quaternions [w, x, y, z] as nuScenes stores
   them;
-- `sensor_to_global` (``:523-532``);
+- `sensor_to_global` (``:523-532``) and `transform_points_between_sensors`
+  (``:535-550``), the ego-motion compensation of multi-sweep loading;
 - `write_synthetic_infos` (``:436-515``): ``nuscenes_infos_{split}.pkl``
   files of the converter's schema with seeded GT boxes and no sensor files;
   the same seed and directory give infos equal, value for value, to the JAX
@@ -76,6 +77,22 @@ def sensor_to_global(pose: Dict, calib: Dict):
     t_sens = np.asarray(calib["translation"], np.float64)
     # x_global = r_ego @ (r_sens @ x + t_sens) + t_ego
     return r_ego @ r_sens, r_ego @ t_sens + t_ego
+
+
+def transform_points_between_sensors(
+    points: np.ndarray,
+    src_pose: Dict, src_calib: Dict,
+    dst_pose: Dict, dst_calib: Dict,
+) -> np.ndarray:
+    """(N, >=3) points from the source sensor's frame at its capture pose
+    into the destination sensor's frame, in float32; channels past xyz are
+    kept as they are."""
+    r_src, t_src = sensor_to_global(src_pose, src_calib)
+    r_dst, t_dst = sensor_to_global(dst_pose, dst_calib)
+    out = points.copy().astype(np.float32)
+    xyz_global = points[:, :3].astype(np.float64) @ r_src.T + t_src
+    out[:, :3] = ((xyz_global - t_dst) @ r_dst).astype(np.float32)  # R_dst^T, applied on the right
+    return out
 
 
 def write_synthetic_infos(

@@ -8,10 +8,16 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/data/dataset.py``
   raw bytes ship and the train and eval steps normalize on the device;
 - `parse_radar_pcd` / `read_radar_pcd` (``:65-117``);
 - `NuScenesDataset` (``:120-570``): LiDAR bins (quirk Q5's 4-float parse by
-  default) through the native point prep or numpy, Q4's random radar points
-  or the parsed radar files, GT encoding, ``cam_front_projection``, and on
-  the geometric path the frustum cells and, for the val split with
-  ``splat_mode: pallas``, the chunk plans;
+  default) through the native point prep or numpy, or with ``num_sweeps``
+  > 1 and sweeps in the info the key sweep and prior ones in its frame with
+  a time-lag channel (``:307-348``, 5 channels); Q4's random radar points
+  or the parsed radar files, with ``radar_num_sweeps`` > 1 and sweeps in a
+  radar's entry aggregated into its key frame (``:370-405``); GT encoding,
+  ``cam_front_projection``, and on the geometric path the frustum cells,
+  for the val split with ``splat_mode: pallas`` the chunk plans, and with
+  ``splat_mode: culled`` the culled pair plans instead of the cells, on
+  every split (``:491-531``: capacities fixed once from sample 0 under a
+  lock);
 - `frustum_cells` (``:535-570``) and `chunk_plans` (``:466-489``), which
   the geometric eval path also calls on its own;
 - `SyntheticNuScenesDataset` (``:573-630``);
@@ -20,8 +26,7 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/data/dataset.py``
 - `DataLoader` (``:668-776``): seeded shuffle, ``drop_last``, a prefetch
   thread that re-raises loader errors, and ``num_workers`` loader threads.
 
-Not ported: multi-sweep aggregation (ROADMAP A8), the culled pair plans of
-``splat_mode: culled`` (A10) and multi-process sharding (A13); each raises.
+Not ported: multi-process sharding (ROADMAP A13); it raises.
 """
 
 from __future__ import annotations
@@ -36,16 +41,21 @@ import numpy as np
 
 from ..config import CAMERA_ORDER, DEFAULT_CLASSES, RADAR_ORDER, CompatFlags, DataSpec
 from ..ops.bev_pool import precompute_bev_chunks
-from ..ops.bev_splat import precompute_frustum_cells
-from .converter import quat_rotation_matrix
+from ..ops.bev_splat import (
+    precompute_culled_pairs,
+    precompute_culled_pairs_batch,
+    precompute_frustum_cells,
+)
+from .converter import quat_rotation_matrix, sensor_to_global, transform_points_between_sensors
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 CHUNK_KEYS = ("point_idx", "local_ids", "block_idx")
+PAIR_KEYS = ("seg_idx", "seg_id", "pair_cell", "pair_pix")
 _BATCH_KEYS = (
     "camera_imgs", "lidar_points", "radar_points", "camera_cells",
-    *(f"camera_{k}" for k in CHUNK_KEYS),
+    *(f"camera_{k}" for k in CHUNK_KEYS + PAIR_KEYS),
 )
 
 
@@ -108,6 +118,14 @@ def read_radar_pcd(path: Path, max_points: int) -> np.ndarray:
     out = np.zeros((max_points, 7), np.float32)
     out[: len(pts)] = pts
     return out
+
+
+def _read_lidar_bin(path, record: int) -> np.ndarray:
+    """(N, 4) float32 points of a LiDAR .bin of `record` floats a point;
+    Q5 (record=4) is the reference's misaligned parse of the 5-float
+    nuScenes records."""
+    raw = np.fromfile(str(path), dtype=np.float32)
+    return raw[: (raw.size // record) * record].reshape(-1, record)[:, :4]
 
 
 def frustum_cells(
@@ -174,7 +192,9 @@ class NuScenesDataset:
     """Pickle-backed dataset (``nuscenes_infos_{split}.pkl``, the reference
     converter's schema, ref: data_converter.py:140-161, 336-356). `config`
     overrides the sizes, classes and range from its ``dataset:`` block and
-    wires the geometric path's cells and plans from ``model.bev_fusion``."""
+    wires the geometric path's cells and plans from ``model.bev_fusion``.
+    The culled pair plans' capacities are ``cull_points`` / ``cull_pairs``
+    when both are given, else 5 % over sample 0's counts."""
 
     def __init__(
         self,
@@ -190,6 +210,9 @@ class NuScenesDataset:
         seed: Optional[int] = None,
         return_camera_cells: bool = False,
         return_camera_chunks: bool = False,
+        return_camera_pairs: bool = False,
+        cull_points: int = 0,
+        cull_pairs: int = 0,
         bev_h: int = 50,
         bev_w: int = 50,
         depth_bins: int = 40,
@@ -216,25 +239,21 @@ class NuScenesDataset:
             bev_cfg = (config.get("model", {}) or {}).get("bev_fusion", {}) or {}
             if bev_cfg.get("camera_to_bev", "pseudo") == "geometric":
                 splat_mode = bev_cfg.get("splat_mode", "matmul")
-                if splat_mode == "culled":
-                    raise NotImplementedError(
-                        "splat_mode: culled (culled pair plans) is not ported yet (ROADMAP A10)"
-                    )
-                return_camera_cells = True
                 # chunk plans feed the fused splat, which only inference
                 # runs: the train split does not carry them
                 return_camera_chunks = splat_mode == "pallas" and split != "train"
+                # the culled pair plans train too, and replace the cells:
+                # the culled branch never reads them
+                return_camera_pairs = splat_mode == "culled"
+                return_camera_cells = not return_camera_pairs
+                cull_points = bev_cfg.get("splat_cull_points", 0)
+                cull_pairs = bev_cfg.get("splat_cull_pairs", 0)
                 dataset_cfg = config.get("dataset", {}) or {}
                 bev_h = bev_cfg.get("bev_h", dataset_cfg.get("bev_h", 50))
                 bev_w = bev_cfg.get("bev_w", dataset_cfg.get("bev_w", 50))
                 depth_bins = bev_cfg.get("depth_bins", 40)
                 depth_min = bev_cfg.get("depth_min", 1.0)
                 depth_max = bev_cfg.get("depth_max", 60.0)
-        if num_sweeps > 1 or radar_num_sweeps > 1:
-            raise NotImplementedError(
-                "multi-sweep aggregation (dataset.num_sweeps / radar_num_sweeps > 1) "
-                "is not ported yet (ROADMAP A8)"
-            )
 
         self.data_root = Path(data_root)
         self.split = split
@@ -250,8 +269,16 @@ class NuScenesDataset:
         self.return_camera_cells = return_camera_cells
         self.return_camera_chunks = return_camera_chunks
         self._chunk_cache: Dict = {}
+        self.return_camera_pairs = return_camera_pairs
+        self._pair_cache: Dict = {}
+        self._cull_caps = (int(cull_points), int(cull_pairs)) if cull_points and cull_pairs else None
+        # two loader threads must not size the capacities from different
+        # samples: one batch would then mix plan shapes
+        self._cull_caps_lock = threading.Lock()
         self.use_native = use_native
         self.emit_uint8 = emit_uint8
+        self.num_sweeps = num_sweeps
+        self.radar_num_sweeps = radar_num_sweeps
         self.jpeg_draft_decode = jpeg_draft_decode
         self.bev_h, self.bev_w = bev_h, bev_w
         self.depth_bins = depth_bins
@@ -283,6 +310,8 @@ class NuScenesDataset:
         return np.stack(imgs)  # (6, H, W, 3)
 
     def _load_lidar(self, info, rng) -> np.ndarray:
+        if self.num_sweeps > 1 and info.get("sweeps"):
+            return self._load_multi_sweep(info, rng)
         record = 4 if self.compat.lidar_four_float_parse else 5
         if self.use_native:
             from .native import load_lidar_native
@@ -292,13 +321,34 @@ class NuScenesDataset:
                 str(info["lidar_path"]), record, self.max_points, 4, self.pc_range,
                 seed=rng.randint(1 << 31),
             )
-        raw = np.fromfile(str(info["lidar_path"]), dtype=np.float32)
-        # Q5 (record=4): misaligned 4-float parse, reproducing the reference
-        pts = raw[: (raw.size // record) * record].reshape(-1, record)[:, :4]
+        pts = _read_lidar_bin(info["lidar_path"], record)
+        return self._pad_or_subsample(self._in_range(pts), self.max_points, rng)
+
+    def _in_range(self, pts: np.ndarray) -> np.ndarray:
         x0, y0, z0, x1, y1, z1 = self.pc_range
         m = ((pts[:, 0] > x0) & (pts[:, 0] < x1) & (pts[:, 1] > y0) & (pts[:, 1] < y1)
              & (pts[:, 2] > z0) & (pts[:, 2] < z1))
-        return self._pad_or_subsample(pts[m], self.max_points, rng)
+        return pts[m]
+
+    def _load_multi_sweep(self, info, rng) -> np.ndarray:
+        """The key sweep and up to num_sweeps - 1 prior sweeps, each moved
+        into the key sweep's frame (ego motion compensated), with the sweep's
+        time lag as a fifth channel (0 for the key sweep) -> (max_points, 5)
+        [x, y, z, intensity, dt]. A prior sweep whose file cannot be read is
+        skipped."""
+        record = 4 if self.compat.lidar_four_float_parse else 5
+        key_pose, key_calib = info["lidar_pose"], info["lidar_calibrated_sensor"]
+        key_pts = _read_lidar_bin(info["lidar_path"], record)
+        clouds = [np.concatenate([key_pts, np.zeros((len(key_pts), 1), np.float32)], axis=1)]
+        for sweep in info["sweeps"][: self.num_sweeps - 1]:
+            try:
+                pts = _read_lidar_bin(sweep["lidar_path"], record)
+            except OSError:
+                continue
+            pts = transform_points_between_sensors(pts, sweep["pose"], sweep["calib"], key_pose, key_calib)
+            dt = np.full((len(pts), 1), float(sweep.get("time_lag_s", 0.0)), np.float32)
+            clouds.append(np.concatenate([pts, dt], axis=1))
+        return self._pad_or_subsample(self._in_range(np.concatenate(clouds, axis=0)), self.max_points, rng)
 
     def _load_radars(self, info, rng) -> np.ndarray:
         out = []
@@ -306,10 +356,36 @@ class NuScenesDataset:
             if self.compat.random_radar_points:
                 # Q4: dummy gaussian points (ref: train_detect.py:173-177)
                 out.append(rng.randn(self.max_radar_points, 7).astype(np.float32))
+                continue
+            entry = info["radars"][radar]
+            if self.radar_num_sweeps > 1 and entry.get("sweeps"):
+                out.append(self._load_radar_multi_sweep(entry, rng))
             else:
-                path = self.data_root / info["radars"][radar]["filename"]
-                out.append(read_radar_pcd(path, self.max_radar_points))
+                out.append(read_radar_pcd(self.data_root / entry["filename"], self.max_radar_points))
         return np.stack(out)  # (5, Nr, 7)
+
+    def _load_radar_multi_sweep(self, entry, rng) -> np.ndarray:
+        """One radar's key frame and up to radar_num_sweeps - 1 prior sweeps
+        in the key frame: positions ego motion compensated, (vx, vy) rotated
+        into the key frame, the t channel the sweep's time lag (0 for the
+        key frame) -> (max_radar_points, 7), subsampled or zero-padded."""
+        key_pose, key_calib = entry["pose"], entry["calibrated_sensor"]
+        clouds = [parse_radar_pcd(self.data_root / entry["filename"])]
+        r_key, _ = sensor_to_global(key_pose, key_calib)
+        for sweep in entry["sweeps"][: self.radar_num_sweeps - 1]:
+            pts = parse_radar_pcd(Path(sweep["path"]))
+            if not len(pts):
+                continue
+            pts = transform_points_between_sensors(pts, sweep["pose"], sweep["calib"], key_pose, key_calib)
+            # velocities only rotate: v_key = R_key^T R_sweep v
+            r_sweep, _ = sensor_to_global(sweep["pose"], sweep["calib"])
+            r_rel = r_key.T @ r_sweep
+            v = np.concatenate([pts[:, 3:5], np.zeros((len(pts), 1), np.float32)], axis=1)
+            pts[:, 3:5] = (v @ r_rel.T)[:, :2].astype(np.float32)
+            pts[:, 6] = float(sweep.get("time_lag_s", 0.0))
+            clouds.append(pts)
+        pts = np.concatenate([c for c in clouds if len(c)] or clouds, axis=0)
+        return self._pad_or_subsample(pts, self.max_radar_points, rng)
 
     def _pad_or_subsample(self, pts: np.ndarray, n: int, rng) -> np.ndarray:
         if pts.shape[0] >= n:
@@ -330,15 +406,17 @@ class NuScenesDataset:
             "gt_velocities": np.asarray(info["gt_velocity"], np.float32).reshape(-1, 2),
             "token": info["token"],
         }
-        if self.return_camera_cells or self.return_camera_chunks:
-            cells = frustum_cells(
-                info, self.image_size, (self.bev_h, self.bev_w), self.depth_bins,
-                self.depth_min, self.depth_max, self.pc_range,
-            )
-            sample["camera_cells"] = cells
+        if self.return_camera_cells or self.return_camera_chunks or self.return_camera_pairs:
+            cells = self._frustum_cells(info)
+            if self.return_camera_cells or self.return_camera_chunks:
+                sample["camera_cells"] = cells
             if self.return_camera_chunks:
                 plans = chunk_plans(cells, self.bev_h * self.bev_w, self._chunk_cache)
                 for k in CHUNK_KEYS:
+                    sample[f"camera_{k}"] = plans[k]
+            if self.return_camera_pairs:
+                plans = self._pair_plans(cells)
+                for k in PAIR_KEYS:
                     sample[f"camera_{k}"] = plans[k]
         cam_front = info.get("cams", {}).get("CAM_FRONT", {})
         if "calibrated_sensor" in cam_front and "lidar_calibrated_sensor" in info:
@@ -356,6 +434,40 @@ class NuScenesDataset:
                 "trans": trans,
             }
         return sample
+
+    def _frustum_cells(self, info) -> np.ndarray:
+        return frustum_cells(info, self.image_size, (self.bev_h, self.bev_w), self.depth_bins,
+                             self.depth_min, self.depth_max, self.pc_range)
+
+    def _pair_plans(self, camera_cells: np.ndarray) -> Dict[str, np.ndarray]:
+        """(N_cam, D, H', W') cells -> the culled pair plans: seg_idx, seg_id
+        (N_cam, T_cap) and pair_cell, pair_pix (N_cam, U_cap) int32. The
+        capacities are fixed once, whichever thread comes first: 5 % over
+        sample 0's counts (or the config's), so every sample, thread, epoch
+        and host gives one shape; a later sample that does not fit raises
+        with the config keys to set. Plans are cached by the cells' bytes
+        (emptied past 256)."""
+        num_cells = self.bev_h * self.bev_w
+        hw = camera_cells.shape[-2] * camera_cells.shape[-1]
+        if self._cull_caps is None:
+            with self._cull_caps_lock:
+                if self._cull_caps is None:
+                    _, self._cull_caps = precompute_culled_pairs_batch(
+                        self._frustum_cells(self.infos[0]), hw, num_cells, headroom=1.05, sizes_only=True,
+                    )
+        t_cap, u_cap = self._cull_caps
+        per_cam = []
+        for cam_cells in camera_cells:
+            key = cam_cells.tobytes()
+            plan = self._pair_cache.get(key)
+            if plan is None:
+                plan = precompute_culled_pairs(cam_cells.reshape(-1), hw, num_cells,
+                                               point_capacity=t_cap, pair_capacity=u_cap)
+                if len(self._pair_cache) > 256:
+                    self._pair_cache.clear()
+                self._pair_cache[key] = plan
+            per_cam.append(plan)
+        return {k: np.stack([p[k] for p in per_cam]) for k in PAIR_KEYS}
 
 
 class SyntheticNuScenesDataset:
@@ -413,8 +525,10 @@ class SyntheticNuScenesDataset:
 
 def collate_fn(samples: List[Dict[str, np.ndarray]], max_objects: int = 500) -> Dict[str, np.ndarray]:
     """Stack the model inputs and, where the samples carry them, the frustum
-    cells and the chunk plans (``camera_point_idx``, ``camera_local_ids``,
-    ``camera_block_idx``) along a new batch axis. Samples with GT get it
+    cells, the chunk plans (``camera_point_idx``, ``camera_local_ids``,
+    ``camera_block_idx``) and the culled pair plans (``camera_seg_idx``,
+    ``camera_seg_id``, ``camera_pair_cell``, ``camera_pair_pix``) along a new
+    batch axis. Samples with GT get it
     padded to a fixed `max_objects`: boxes (B, M, 7) zero rows, labels
     (B, M) -1, velocities (B, M, 2); and their tokens as a list
     (the reference pads to the batch's largest, ref: train_detect.py:197-242)."""

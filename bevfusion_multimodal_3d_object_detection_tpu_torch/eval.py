@@ -6,7 +6,9 @@
 Quirk Q10 as in the reference: argv[2] is the config and argv[1] is
 ignored; the MODEL is always built from ``configs/base.yaml`` in the working
 directory, and the config (when given) only sets the loader, the
-post-processing and the metrics options.
+post-processing and the metrics options. The LiDAR encoder's input width
+is the loader's (5 with ``dataset.num_sweeps`` > 1), as the JAX CLI's init
+traced from the first val sample gives it.
 
 Pipeline: the val split (float cameras, f32 forward) -> restore of
 ``./checkpoints/best_model.msgpack`` (exit 1 when it is missing, unless
@@ -36,10 +38,10 @@ import numpy as np
 
 def main(config_path: Optional[str] = None, device=None) -> Dict:
     from .config import CompatFlags, DetectorSpec, PostProcessSpec, TrainSpec, load_config
-    from .data.dataset import DataLoader, NuScenesDataset
+    from .data.dataset import DataLoader, NuScenesDataset, collate_fn
     from .models.detector import MultiModal3DDetector
     from .ops.decode import decode_to_host
-    from .train.loop import Trainer, make_eval_step
+    from .train.loop import Trainer, make_eval_step, with_data_widths
     from .utils.metrics import compute_metrics, save_and_print_metrics
 
     # Q10: without a config the loader takes defaults, but the model is
@@ -63,8 +65,9 @@ def main(config_path: Optional[str] = None, device=None) -> Dict:
     val_ds = NuScenesDataset(data_root=data_root, split="val", config=loader_config or model_config, seed=42)
     val_loader = DataLoader(val_ds, batch_size=train_spec.batch_size)
 
-    model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding)
-    trainer = Trainer(model, train_spec, compat, device=device).init_state()
+    sample = collate_fn([val_ds[0]])
+    model = MultiModal3DDetector(with_data_widths(spec, sample), mask_padding=not compat.unmasked_point_padding)
+    trainer = Trainer(model, train_spec, compat, device=device).init_state(sample)
 
     ckpt = Path("./checkpoints/best_model.msgpack")
     if ckpt.exists():

@@ -10,8 +10,9 @@ with like:
   camera_imgs:  (B, N_cam, H, W, 3)
   lidar_points: (B, N, C)
   radar_points: (B, R, N_r, C_r)
-  camera_cells: (B, N_cam, D, H', W') int, camera_chunks: the per-camera
-                chunk plans (``camera_to_bev: geometric`` only)
+  camera_cells: (B, N_cam, D, H', W') int, camera_chunks and camera_pairs:
+                the per-camera chunk plans and culled pair plans
+                (``camera_to_bev: geometric`` only)
 
 and the prediction maps come back NHWC; the MLP head gives {'cls', 'box'}.
 Inside, everything is NCHW.
@@ -75,7 +76,8 @@ class MultiModal3DDetector(nn.Module):
                 lidar_points: Optional[torch.Tensor] = None,
                 radar_points: Optional[torch.Tensor] = None,
                 camera_cells: Optional[torch.Tensor] = None,
-                camera_chunks: Optional[Tuple[torch.Tensor, ...]] = None) -> Dict[str, torch.Tensor]:
+                camera_chunks: Optional[Tuple[torch.Tensor, ...]] = None,
+                camera_pairs: Optional[Tuple[torch.Tensor, ...]] = None) -> Dict[str, torch.Tensor]:
         s = self.spec
         cam = lidar = radar = None
         if s.use_camera:
@@ -86,7 +88,8 @@ class MultiModal3DDetector(nn.Module):
         if s.use_radar:
             radar = self.radar_encoder(radar_points)
         if s.fusion_type == "bev":
-            fused = self.fusion(cam, lidar, radar, camera_cells=camera_cells, camera_chunks=camera_chunks)
+            fused = self.fusion(cam, lidar, radar, camera_cells=camera_cells, camera_chunks=camera_chunks,
+                                camera_pairs=camera_pairs)
         else:
             fused = self.fusion(cam, lidar, radar)
         preds = self.det_head(fused)

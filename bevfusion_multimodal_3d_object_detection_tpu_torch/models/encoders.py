@@ -4,7 +4,9 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/models/encoders.py``:
 
 - `ResNetCameraEncoder` (``:34-79``): ResNet-18 trunk (stride 16) + 1x1
   projection 256->512 + BN + ReLU; the 6 views fold into the batch;
-  ``remat`` checkpoints the trunk's residual blocks in training.
+  ``remat`` checkpoints the trunk's residual blocks in training; under
+  ``freeze_bn`` its BatchNorms stay in eval mode (running statistics, never
+  updated) whatever ``train()`` asks.
 - `PointNetLiDAREncoder`, `RadarEncoder`, `MultiRadarEncoder` (``:141-283``):
   shared per-point MLPs + global max. In eval mode the whole chain runs as
   the fused PointNet (`ops.pointnet_fused`, BN folded from the module's own
@@ -54,6 +56,18 @@ class ResNetCameraEncoder(nn.Module):
         )
         if not fold_bn:
             self.channel_proj_bn = batch_norm(spec.out_channels)
+        self.train(self.training)  # freeze_bn from the start
+
+    def train(self, mode: bool = True) -> "ResNetCameraEncoder":
+        """`nn.Module.train`, except that under ``spec.freeze_bn`` the
+        BatchNorms stay in eval mode (the JAX encoder's ``bn_train = train
+        and not freeze_bn``): every ``model.train()`` reaches this."""
+        super().train(mode)
+        if self.spec.freeze_bn:
+            for m in self.modules():
+                if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                    m.train(False)
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-3]

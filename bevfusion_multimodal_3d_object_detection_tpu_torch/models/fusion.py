@@ -9,8 +9,10 @@ conv-BN-ReLU layers. The camera goes to the grid in one of two ways
 - ``pseudo``: mean over cameras, conv-BN-ReLU twice, bilinear resize;
 - ``geometric``: `GeometricCameraBEV`, a lift-splat over depth bins into
   the BEV cells each frustum point falls in (``:58-158``), with the splat
-  of ``splat_mode: matmul`` or, at inference with chunk plans,
-  ``splat_mode: pallas`` (kernel B2).
+  of ``splat_mode``: ``matmul``; ``pallas`` (kernel B2) at inference with
+  chunk plans, else the matmul splat; ``culled`` with the culled pair plans
+  (training too), else the matmul splat on the cells; ``scatter``, the
+  lifted tensor scatter-added into the cells.
 
 The global-feature fusions (``:279-474``) give one (B, C) vector per sample
 for the MLP head: `FlexibleAttentionFusion` (one token per modality, a
@@ -36,7 +38,13 @@ from torch import nn
 
 from ..config import AttentionFusionSpec, BEVFusionSpec, LateFusionSpec
 from ..ops.bev_pool import num_cells_padded
-from ..ops.bev_splat import lift_splat_matmul_rows, lift_splat_pallas_rows
+from ..ops.bev_splat import (
+    bev_scatter_add,
+    lift_features,
+    lift_splat_culled_rows,
+    lift_splat_matmul_rows,
+    lift_splat_pallas_rows,
+)
 from .resnet import batch_norm
 
 
@@ -63,16 +71,17 @@ class GeometricCameraBEV(nn.Module):
 
     camera_features (B, N, C_cam, H', W'); camera_cells (B, N, D, H', W')
     int, -1 out of range; camera_chunks: the per-camera chunk plans
-    (point_idx, local_ids, block_idx) of `ops.bev_pool.precompute_bev_chunks`,
-    each (B, N, ...). Output (B, bev_channels, bev_h, bev_w)."""
+    (point_idx, local_ids, block_idx) of `ops.bev_pool.precompute_bev_chunks`;
+    camera_pairs: the culled pair plans (seg_idx, seg_id, pair_cell,
+    pair_pix) of `ops.bev_splat.precompute_culled_pairs`; each (B, N, ...).
+    Output (B, bev_channels, bev_h, bev_w)."""
+
+    SPLAT_MODES = ("matmul", "pallas", "culled", "scatter")
 
     def __init__(self, spec: BEVFusionSpec, camera_channels: int = 512):
         super().__init__()
-        if spec.splat_mode not in ("matmul", "pallas"):
-            raise NotImplementedError(
-                f"splat_mode={spec.splat_mode!r} is not ported yet "
-                "(ROADMAP, still to port: the scatter and culled splats)"
-            )
+        if spec.splat_mode not in self.SPLAT_MODES:
+            raise ValueError(f"unknown splat_mode {spec.splat_mode!r}; one of {self.SPLAT_MODES}")
         self.spec = spec
         c = spec.bev_channels
         self.depth_head = nn.Conv2d(camera_channels, spec.depth_bins, 1)
@@ -81,25 +90,36 @@ class GeometricCameraBEV(nn.Module):
         self.splat_refine_bn = batch_norm(c)
 
     def forward(self, camera_features: torch.Tensor, camera_cells: Optional[torch.Tensor] = None,
-                camera_chunks: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+                camera_chunks: Optional[Tuple[torch.Tensor, ...]] = None,
+                camera_pairs: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
         s = self.spec
         b, n = camera_features.shape[:2]
         flat = camera_features.reshape((b * n,) + camera_features.shape[2:])
         depth_logits = self.depth_head(flat)
         feat = self.feat_proj(flat)
         num_cells = s.bev_h * s.bev_w
-        if s.splat_mode == "pallas" and camera_chunks is not None and not self.training:
+
+        def rows(plans):
+            return (a.reshape((b * n,) + a.shape[2:]) for a in plans)
+
+        if s.splat_mode == "culled" and camera_pairs is not None:
+            # the culled, (cell, pixel)-grouped plans; differentiable
+            bev = lift_splat_culled_rows(feat, depth_logits, *rows(camera_pairs), num_cells)
+        elif s.splat_mode == "pallas" and camera_chunks is not None and not self.training:
             # kernel B2 (inference only, as in the JAX package); f32 out
-            pi, li, bi = (a.reshape((b * n,) + a.shape[2:]) for a in camera_chunks)
             bev = lift_splat_pallas_rows(
-                feat, depth_logits, pi, li, bi, num_cells, num_cells_padded(num_cells)
+                feat, depth_logits, *rows(camera_chunks), num_cells, num_cells_padded(num_cells)
             ).to(feat.dtype)
         else:
+            # as in JAX: pallas in training or without chunk plans and culled
+            # without pair plans take the matmul splat on the cells
             if camera_cells is None:
-                raise ValueError("the matmul splat needs camera_cells")
-            bev = lift_splat_matmul_rows(
-                feat, depth_logits, camera_cells.reshape(b * n, -1), num_cells
-            )
+                raise ValueError(f"splat_mode {s.splat_mode!r} without its plans needs camera_cells")
+            cells = camera_cells.reshape(b * n, -1)
+            if s.splat_mode == "scatter":
+                bev = bev_scatter_add(lift_features(feat, depth_logits), cells, num_cells)
+            else:
+                bev = lift_splat_matmul_rows(feat, depth_logits, cells, num_cells)
         bev = bev.reshape(b, n, s.bev_h, s.bev_w, s.bev_channels).sum(dim=1)
         bev = self.splat_refine_conv(bev.permute(0, 3, 1, 2))
         return F.relu(self.splat_refine_bn(bev))
@@ -143,8 +163,9 @@ class FlexibleBEVFusion(_ConvBNBlocks):
                        (5-D for camera_to_bev: geometric)
       lidar_features:  (B, C_lidar)
       radar_features:  (B, C_radar)
-      camera_cells, camera_chunks: the geometric path's frustum cells and
-                       chunk plans (see `GeometricCameraBEV`)
+      camera_cells, camera_chunks, camera_pairs: the geometric path's
+                       frustum cells, chunk plans and culled pair plans
+                       (see `GeometricCameraBEV`)
     Output: (B, bev_channels, bev_h, bev_w)."""
 
     def __init__(self, spec: BEVFusionSpec = BEVFusionSpec(),
@@ -182,7 +203,8 @@ class FlexibleBEVFusion(_ConvBNBlocks):
                 lidar_features: Optional[torch.Tensor] = None,
                 radar_features: Optional[torch.Tensor] = None,
                 camera_cells: Optional[torch.Tensor] = None,
-                camera_chunks: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+                camera_chunks: Optional[Tuple[torch.Tensor, ...]] = None,
+                camera_pairs: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
         s = self.spec
         bev_feats = []
         _modality_inputs(self, camera_features, lidar_features, radar_features)
@@ -190,7 +212,8 @@ class FlexibleBEVFusion(_ConvBNBlocks):
         if self.use_camera and s.camera_to_bev == "geometric":
             if camera_features.ndim != 5:
                 raise ValueError("geometric camera-to-BEV needs (B, N_cam, C, H', W') features")
-            bev_feats.append(self.geometric_camera_bev(camera_features, camera_cells, camera_chunks))
+            bev_feats.append(self.geometric_camera_bev(camera_features, camera_cells, camera_chunks,
+                                                       camera_pairs))
         elif self.use_camera:
             cam = camera_features
             if cam.ndim == 5:  # mean over cameras (ref: fusion.py:233-236)

@@ -6,10 +6,12 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/train/loop.py``
 - `make_optimizer` (``:46-88``): optax's global-norm clip, then AdamW with a
   learning rate per update (constant under Q6, else cosine with an optional
   linear warmup), wrapped in ``MultiSteps`` when gradients accumulate;
-- `make_train_step` (``:131-239``): forward in train mode (BatchNorm batch
-  statistics, dropout), targets on the device (CenterNet, or the MLP head's
-  first valid object), loss, backward and one optimizer update, with bf16
-  autocast under ``train.mixed_precision``;
+- `make_train_step` (``:131-239``): with ``compat.skip_augmentation`` off
+  (Q14) the batch's augmentation (`ops.augment`), then forward in train mode
+  (BatchNorm batch statistics, dropout; the camera BNs on their running
+  statistics under ``camera_encoder.freeze_bn``), targets on the device
+  (CenterNet, or the MLP head's first valid object), loss, backward and one
+  optimizer update, with bf16 autocast under ``train.mixed_precision``;
 - `make_eval_step` (``:242-291``): forward + decode (the MLP head's raw
   ``cls``/``box``);
 - `Trainer` (``:294-615``): epochs with a per-step JSONL log, validation
@@ -18,16 +20,20 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/train/loop.py``
 The batch is the JAX package's dict of numpy arrays
 (`data.dataset.collate_fn`, plus ``gt_boxes`` and ``gt_labels`` to train):
 uint8 cameras are normalized on the device, and the geometric path's
-``camera_cells`` and chunk plans (``camera_point_idx``, ``camera_local_ids``,
-``camera_block_idx``) go to the model as in the JAX package; in training the
-geometric branch ignores the plans and takes the matmul splat. The train
-step launches no hand-written kernel: the point encoders run their plain
-chain, as in the JAX package, whose Pallas kernels have no backward.
+``camera_cells``, chunk plans (``camera_point_idx``, ``camera_local_ids``,
+``camera_block_idx``) and culled pair plans (``camera_seg_idx``,
+``camera_seg_id``, ``camera_pair_cell``, ``camera_pair_pix``) go to the model
+as in the JAX package; in training the pallas splat's branch ignores the
+chunk plans and takes the matmul splat, while the culled splat trains on its
+pair plans. The train step launches no hand-written kernel: the point
+encoders run their plain chain, as in the JAX package, whose Pallas kernels
+have no backward.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -35,8 +41,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import CompatFlags, DetectorSpec, TrainSpec
+from ..config import AugmentSpec, CompatFlags, DetectorSpec, TrainSpec
 from ..models.detector import MultiModal3DDetector
+from ..ops.augment import augment_modalities, draw_augmentation, step_generator
 from ..ops.decode import decode_centernet_predictions
 from ..ops.losses import centernet_loss, detection_loss, prepare_mlp_targets
 from ..ops.preprocess import normalize_images
@@ -44,8 +51,21 @@ from ..ops.targets import prepare_centernet_targets
 from ..utils.device import resolve_device
 
 
-def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def with_data_widths(spec: DetectorSpec, batch: Dict) -> DetectorSpec:
+    """`spec` with the LiDAR encoder's input width taken from the batch's
+    points, as the JAX package's init traces it from a sample batch: with
+    ``num_sweeps`` > 1 the points carry a fifth (time-lag) channel whatever
+    ``lidar_encoder.input_channels`` says."""
+    if not spec.use_lidar or "lidar_points" not in batch:
+        return spec
+    width = int(np.shape(batch["lidar_points"])[-1])
+    return dataclasses.replace(spec, lidar=dataclasses.replace(spec.lidar, input_channels=width))
 
 
 def _model_inputs(spec: DetectorSpec, batch: Dict, device: torch.device,
@@ -72,6 +92,12 @@ def _model_kwargs(spec: DetectorSpec, batch: Dict, device: torch.device) -> Dict
         kwargs["camera_chunks"] = tuple(
             _tensor(batch[k], device)
             for k in ("camera_point_idx", "camera_local_ids", "camera_block_idx")
+        )
+    if spec.use_camera and "camera_seg_idx" in batch:
+        # culled pair plans (splat_mode: culled): training and inference
+        kwargs["camera_pairs"] = tuple(
+            _tensor(batch[k], device)
+            for k in ("camera_seg_idx", "camera_seg_id", "camera_pair_cell", "camera_pair_pix")
         )
     return kwargs
 
@@ -234,18 +260,44 @@ def make_optimizer(train_spec: TrainSpec, compat: CompatFlags, steps_per_epoch: 
 class TrainStep:
     """`train_step(batch) -> losses` (see `make_train_step`); `step` counts
     the calls, as the JAX package's ``TrainState.step``. A call runs
-    `forward`, `loss`, `gradients` and `update` in turn."""
+    `augmented`, `forward`, `loss`, `gradients` and `update` in turn."""
 
     def __init__(self, model: MultiModal3DDetector, optimizer: Optimizer, train_spec: TrainSpec,
-                 compat: CompatFlags, check_gradients: bool, device: torch.device):
+                 compat: CompatFlags, check_gradients: bool, device: torch.device,
+                 augment: Optional[AugmentSpec] = None):
         self.model, self.optimizer, self.device = model, optimizer, device
         self.train_spec, self.compat = train_spec, compat
         self.check_gradients = check_gradients
+        self.augment = None if compat.skip_augmentation else (augment or AugmentSpec())  # Q14
+        spec = model.spec
+        # the geometric branch's frustum plans are host-side calibration
+        # constants: a flip or scale of the scene cannot move with them
+        self.geometry_frozen = spec.use_camera and spec.bev.camera_to_bev == "geometric"
         # the head's: the point MLPs keep f32 parameters under a cast model
         self.dtype = next(model.det_head.parameters()).dtype
         self.params = [p for p in model.parameters() if p.requires_grad]
         optimizer.init(self.params)
         self.step = 0
+
+    def augmented(self, batch: Dict) -> Dict:
+        """The batch with its cameras (normalized, in the working dtype),
+        points and GT boxes augmented on the device from the draws of
+        `ops.augment.step_generator(train_spec.seed, step)`; the batch as
+        it is when augmentation is off."""
+        if self.augment is None:
+            return batch
+        spec, device = self.model.spec, self.device
+        cams, lidar, radar = _model_inputs(spec, batch, device, self.dtype)
+        boxes = _tensor(batch["gt_boxes"], device)
+        draws = draw_augmentation(step_generator(self.train_spec.seed, self.step), self.augment,
+                                  boxes.shape[0], None if radar is None else radar.shape)
+        cams, lidar, radar, boxes = augment_modalities(draws, cams, lidar, radar, boxes, self.augment,
+                                                       geometry_frozen=self.geometry_frozen)
+        out = dict(batch, gt_boxes=boxes)
+        for key, value in (("camera_imgs", cams), ("lidar_points", lidar), ("radar_points", radar)):
+            if value is not None:
+                out[key] = value
+        return out
 
     def forward(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The model's predictions in train mode (bf16 autocast under
@@ -297,6 +349,7 @@ class TrainStep:
         return losses
 
     def __call__(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        batch = self.augmented(batch)
         losses = self.loss(self.forward(batch), batch)
         return self.update(losses, self.gradients(losses["total_loss"]))
 
@@ -320,20 +373,14 @@ def make_train_step(
     or 9) and ``gt_labels`` (B, M), -1 for padding rows.
 
     `check_gradients` adds ``grad_norm`` (the global norm before the clip)
-    and ``grads_finite`` to the loss dict. `augment` is read only with
-    augmentation on (``compat.skip_augmentation: false``), which is not
-    ported yet."""
-    del augment
-    if not compat.skip_augmentation:
-        raise NotImplementedError(
-            "training augmentation (compat.skip_augmentation: false) is not ported yet (ROADMAP A8)"
-        )
-    spec = model.spec
-    if spec.use_camera and spec.camera.freeze_bn:
-        raise NotImplementedError("camera_encoder.freeze_bn is not ported yet (ROADMAP queue A)")
+    and ``grads_finite`` to the loss dict. With ``compat.skip_augmentation``
+    off, each step first augments the batch by `augment` (an `AugmentSpec`,
+    its defaults when None), the flip and scale frozen on the geometric
+    camera-to-BEV. Under ``camera_encoder.freeze_bn`` the camera encoder's
+    BatchNorms keep their running statistics (`ResNetCameraEncoder.train`)."""
     device = resolve_device(device)
     model.to(device).train()
-    return TrainStep(model, optimizer, train_spec, compat, check_gradients, device)
+    return TrainStep(model, optimizer, train_spec, compat, check_gradients, device, augment)
 
 
 def mlp_detections(preds: Dict[str, torch.Tensor]) -> List[Dict[str, np.ndarray]]:
@@ -372,12 +419,14 @@ class Trainer:
         steps_per_epoch: int = 1,
         check_gradients: bool = False,
         device=None,
+        augment: Optional[AugmentSpec] = None,
     ):
         self.model = model
         self.spec = model.spec
         self.train_spec = train_spec
         self.compat = compat
         self.check_gradients = check_gradients
+        self.augment = augment
         self.device = resolve_device(device)
         self.optimizer = make_optimizer(train_spec, compat, steps_per_epoch)
         self.train_step: Optional[TrainStep] = None
@@ -385,16 +434,25 @@ class Trainer:
         self.best_map = -1.0
 
     # -- state ---------------------------------------------------------------
-    def init_state(self) -> "Trainer":
+    def init_state(self, sample_batch: Optional[Dict] = None) -> "Trainer":
         """Seeded weights, the pretrained camera trunk where configured, and
-        a fresh optimizer (the JAX package's takes a sample batch to trace
-        its init; the port's shapes do not depend on one)."""
+        a fresh optimizer. The JAX package traces its init from a sample
+        batch, so its LiDAR width follows the data; the port's model is
+        built before, from a spec that `with_data_widths` fits to a batch.
+        Given one, `sample_batch` is checked against the model: a width
+        that differs raises."""
         from ..utils.torch_convert import maybe_load_pretrained_camera
 
+        if sample_batch is not None and with_data_widths(self.spec, sample_batch) != self.spec:
+            raise ValueError(
+                f"the batch's LiDAR points have {np.shape(sample_batch['lidar_points'])[-1]} channels but the "
+                f"model's LiDAR encoder takes {self.spec.lidar.input_channels}: build the model from "
+                "train.loop.with_data_widths(spec, batch)"
+            )
         self.model.init_weights(torch.Generator().manual_seed(self.train_spec.seed))
         maybe_load_pretrained_camera(self.model, self.spec)
         self.train_step = make_train_step(
-            self.model, self.optimizer, self.train_spec, self.compat,
+            self.model, self.optimizer, self.train_spec, self.compat, augment=self.augment,
             check_gradients=self.check_gradients, device=self.device,
         )
         self.eval_step = make_eval_step(self.model, self.compat, device=self.device)

@@ -11,7 +11,12 @@ trains ``train.num_epochs`` epochs with a per-step JSONL log in
 ``save_interval`` epochs and at the last one (pruned to ``keep_last``) and
 ``best_model.msgpack`` on a new best mAP, and resumes from
 ``train.resume.checkpoint_path`` or, with ``auto``, the newest epoch
-checkpoint. The checkpoints are the JAX package's format both ways.
+checkpoint. The checkpoints are the JAX package's format both ways. The
+LiDAR encoder's input width follows the data (a fifth, time-lag channel with
+``dataset.num_sweeps`` > 1), as the JAX CLI's init traced from a batch gives
+it. As in the JAX CLI, the Trainer gets no ``AugmentSpec``: with
+``compat.skip_augmentation: false`` the step augments with `AugmentSpec`'s
+defaults, not the yaml's ``dataset.augmentation`` values (a followed quirk).
 
 `main(config_path, device=None, config=None)` runs the same from Python
 (`device="cpu"` for the CPU). ``infer`` runs `inference`: the first val
@@ -29,10 +34,10 @@ from pathlib import Path
 from typing import Dict, Optional
 
 from .config import CompatFlags, DataSpec, DetectorSpec, PostProcessSpec, TrainSpec, load_config
-from .data.dataset import DataLoader, NuScenesDataset
+from .data.dataset import DataLoader, NuScenesDataset, collate_fn
 from .models.detector import MultiModal3DDetector
 from .train.checkpoint import is_committed_checkpoint, latest_checkpoint
-from .train.loop import Trainer
+from .train.loop import Trainer, with_data_widths
 from .utils.metrics import save_and_print_metrics
 
 
@@ -104,13 +109,15 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
             f"{train_spec.batch_size} with drop_last — reduce train.batch_size or add data"
         )
 
-    model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding)
+    # the JAX CLI traces its init from a batch: the LiDAR width is the data's
+    sample = collate_fn([train_ds[0]])
+    model = MultiModal3DDetector(with_data_widths(spec, sample), mask_padding=not compat.unmasked_point_padding)
     trainer = Trainer(
         model, train_spec, compat, steps_per_epoch=len(train_loader),
         check_gradients=(config.get("debug", {}) or {}).get("check_gradients", False),
         device=device,
     )
-    trainer.init_state()
+    trainer.init_state(sample)
     print(f"Device: {trainer.device}")
 
     start_epoch = 0

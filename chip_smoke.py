@@ -139,7 +139,26 @@ Phases (any failure raises and the script exits non-zero):
    sample, card against the CPU (cls/box within 1e-4 of their scale, the
    same label), and its latency_s; (f) B1's f32 path against the cuBLAS
    matmul/relu/amax chain (TF32 off) at LiDAR 1x35000x4 and 4x35000x4 and
-   radar 5x125x7 and 20x125x7 (the engine's and an eval batch's shapes).
+   radar 5x125x7 and 20x125x7 (the engine's and an eval batch's shapes);
+14. the scatter and culled splats and the training-data options: (a) B1 on
+   the multi-sweep LiDAR chain (C_in = 5) against its plain version with
+   phase 2's comparison, calibration, limits and mutants (8x35000x5 bf16
+   and f32, 4x and 1x35000x5 f32, ragged N, dense clusters in f32) and its
+   times at 8x35000x5 bf16 and 4x35000x5 f32 as phase 5 gives them;
+   (b) card against CPU in f32 (TF32 off): `GeometricCameraBEV` in scatter
+   and culled modes (eval and train, 1e-4 of scale), one culled train step
+   and one augmented train step at phase 9's limits (the augmentation's
+   draws come from a CPU generator, the same on both); (c) at full width,
+   geometric with the culled splat on the ring calibration's pair plans:
+   the eval step at batch 8 in bf16 (B1 2 launches a batch, B2 none;
+   T_cull and U_cap), train steps at batch 4 in f32 and bf16 with
+   augmentation on and the geometry frozen, as phase 10 times them; the
+   scatter splat's eval step at the same shapes; (d) `train_detect.main`
+   on a phase-11-style tree with LiDAR and radar sweeps (radar .pcd files,
+   Q4 off), augmentation on, num_sweeps and radar_num_sweeps 2 and
+   camera_encoder.freeze_bn: one epoch and a resume, restored bit for bit,
+   B1 twice per validation batch on the 5-wide chain and never in
+   training, the camera BatchNorm statistics unchanged.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.
@@ -189,6 +208,7 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.data.converter import wr
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import (
     DataLoader,
     NuScenesDataset,
+    PAIR_KEYS,
     SyntheticNuScenesDataset,
     chunk_plans,
     collate_fn,
@@ -201,6 +221,7 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import bev_pool as b
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import pointnet_fused as pf
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.bev_splat import (
     lift_splat_matmul_rows,
+    precompute_culled_pairs_batch,
     precompute_frustum_cells,
 )
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.decode import (
@@ -439,8 +460,6 @@ def check_kernel(encoders, rng) -> float:
     the plain version with any one layer's bias dropped, and, where every
     row is real, with the zero rows of the dtype's own tile let into the
     max. Returns the largest bf16 error (the serving dtype)."""
-    worst = 0.0
-    failures = []
     folded = encoders["lidar"].point_mlp.folded()[0]
     lidar = [folded[0].shape[0]] + [w.shape[1] for w in folded]
     tile = pf.kernel_tile_points(torch.bfloat16, lidar)
@@ -467,6 +486,17 @@ def check_kernel(encoders, rng) -> float:
         ("wide", lidar_points(rng, 3, 2 * tile + 44), both),
         ("wide-dense", dense_points(rng, 40, tile32 + 1, 4, 40.0), both),
     ]
+    return check_b1_cases(encoders, cases)
+
+
+def check_b1_cases(encoders, cases) -> float:
+    """Each (encoder name[-dense], points, dtypes) case: B1 against its plain
+    version in both mask_padding values, all-masked rows 0, and the
+    comparison shown to reject the plain version with one bias dropped and,
+    on dense points, with the tile's zero rows in the max. Raises on any
+    failure; returns the largest bf16 error."""
+    worst = 0.0
+    failures = []
     for name, pts, dtypes in cases:
         enc = encoders[name.split("-")[0]]
         for dtype in dtypes:
@@ -478,7 +508,7 @@ def check_kernel(encoders, rng) -> float:
                 log(f"  B1 {name} {tuple(pts.shape)} {dtype} mask={mask}: {fmt(s)}")
                 if s["worst"] > 1.0:
                     failures.append(f"B1 disagrees with its plain version: {name} {dtype} mask={mask}")
-                if mask and not name.endswith("dense") and not torch.all(got[-1] == 0):
+                if mask and not bool(x[-1].any()) and not torch.all(got[-1] == 0):
                     failures.append(f"B1 {name} {dtype}: an all-masked row must give 0")
                 if dtype == torch.bfloat16:
                     worst = max(worst, s["max_abs_err"])
@@ -1233,82 +1263,93 @@ class TieSides:
             raise AssertionError("the replayed run passed fewer kinks than the recorded one")
 
 
+def small_train_checks(cfg, name: str, plans=None, n_steps: int = 2, mutant: bool = True) -> dict:
+    """Phase 9's check of `n_steps` small train steps of `cfg` on the card
+    (float64, then f32 with the CPU's sides of every tie) against the CPU's
+    float64 steps, each from the CPU's state before it; `plans` go into
+    every batch; with `mutant`, the f32 check must reject a step whose loss
+    reads bf16 predictions. Returns the worst ratio to each limit."""
+    spec, compat, ts = DetectorSpec.from_config(cfg), CompatFlags.from_config(cfg), TrainSpec.from_config(cfg)
+    lr = ts.learning_rate
+    g = torch.Generator().manual_seed(7)
+    model = randomize_stats(MultiModal3DDetector(spec).init_weights(g), g)
+    with torch.no_grad():  # O(1) head outputs
+        for m in model.det_head.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=g)
+    state0 = model.state_dict()
+    rng = np.random.RandomState(8)
+    batches = [train_batch(spec, rng, 2, 16, 5, plans) for _ in range(n_steps)]
+    # cameras normalized in float64 on the host: the uint8 wire normalized
+    # in f32 on each device differs by an ulp here and there
+    batches = [dict(b, camera_imgs=(b["camera_imgs"] / 255.0 - IMAGENET_MEAN.astype(np.float64))
+                    / IMAGENET_STD.astype(np.float64)) for b in batches]
+    cpu_steps = []
+    for b in batches:
+        start = cpu_steps[-1] if cpu_steps else {"state": state0, "adamw": None}
+        cpu_steps.append(TrainRun(spec, compat, ts, start["state"], "cpu", torch.float64, start["adamw"])(b))
+
+    def starts(i):
+        return (state0, None, None) if i == 0 else (cpu_steps[i - 1]["state"], cpu_steps[i - 1]["adamw"],
+                                                    cpu_steps[i - 1]["mu"])
+
+    # float64 on the card, each step from the CPU's state before it
+    worst = {}
+    for i, b in enumerate(batches):
+        state, adamw, prev_mu = starts(i)
+        got = TrainRun(spec, compat, ts, state, "cuda", torch.float64, adamw)(b)
+        w = compare_step(got, cpu_steps[i], prev_mu, lr, f"{name} float64 step {i + 1}")
+        worst = {k: max(v, worst.get(k, 0.0)) for k, v in w.items()}
+
+    # f32 on the card, each step from the CPU's state before it, against
+    # the CPU's float64 step on the card's side of every tie
+    f32_worst, ties = {}, []
+    for i, b in enumerate(batches):
+        state, adamw, prev_mu = starts(i)
+        ties.append(TieSides())
+        with ties[i].record():
+            got = TrainRun(spec, compat, ts, state, "cuda", torch.float32, adamw)(b)
+        with ties[i].replay():
+            want = TrainRun(spec, compat, ts, state, "cpu", torch.float64, adamw)(b)
+        if i == 0:
+            want1 = want
+        w = compare_step(got, want, prev_mu, lr, f"{name} f32 step {i + 1}", 1e-4)
+        f32_worst = {k: max(v, f32_worst.get(k, 0.0)) for k, v in w.items()}
+    share = max(t.flip_share for t in ties)
+    if not share <= 1e-5:
+        raise AssertionError(f"{name}: the f32 step took the other side of a kink {share:.3g} of its "
+                             "tensor's largest away")
+    out = {"float64": worst, "f32": f32_worst, "f32_ties_across": sum(t.flips for t in ties),
+           "f32_tie_share": share}
+    if mutant:
+        # a wrong f32 step: the loss reads bf16-rounded predictions (the
+        # forward, and so the sides of its ties, are step 1's)
+        bad = TrainRun(spec, compat, ts, state0, "cuda", torch.float32)
+        loss = bad.step.loss
+        bad.step.loss = lambda preds, batch: loss({k: v.bfloat16() for k, v in preds.items()}, batch)
+        got = bad(batches[0])
+        # the lambda refers back to the step: without this the cycle would
+        # keep the model and its AdamW state on the card into phase 10
+        del bad.step.loss
+        mutant_worst, failures = step_errors(got, want1, None, lr, f"{name} bf16-loss mutant", 1e-4)
+        if not failures:
+            raise AssertionError(f"{name}: the f32 check passed a step whose loss read bf16 predictions")
+        out["bf16_loss_mutant"] = mutant_worst
+    log(f"  small train {name}: worst share of each limit " + json.dumps(out))
+    return out
+
+
 def check_small_train(config) -> dict:
     """Phase 9. Returns the worst ratio to each limit, per camera-to-BEV and
     dtype, the ReLU inputs replayed across 0 and the rejected mutant's worst
     ratio."""
-    out = {}
     counters = (pf.pointnet_fused, bp.bev_pool_weighted_rows)
     launches = [k.launches for k in counters]
+    out = {}
     for name, base in (("pseudo", config), ("geometric", geometric_config(config))):
         cfg = small_train_config(base)
-        spec, compat, ts = DetectorSpec.from_config(cfg), CompatFlags.from_config(cfg), TrainSpec.from_config(cfg)
-        lr = ts.learning_rate
-        g = torch.Generator().manual_seed(7)
-        model = randomize_stats(MultiModal3DDetector(spec).init_weights(g), g)
-        with torch.no_grad():  # O(1) head outputs
-            for m in model.det_head.modules():
-                if isinstance(m, torch.nn.Conv2d):
-                    m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=g)
-        state0 = model.state_dict()
-        rng = np.random.RandomState(8)
-        plans = camera_plan_inputs(spec) if name == "geometric" else None
-        batches = [train_batch(spec, rng, 2, 16, 5, plans) for _ in range(2)]
-        # cameras normalized in float64 on the host: the uint8 wire normalized
-        # in f32 on each device differs by an ulp here and there
-        batches = [dict(b, camera_imgs=(b["camera_imgs"] / 255.0 - IMAGENET_MEAN.astype(np.float64))
-                        / IMAGENET_STD.astype(np.float64)) for b in batches]
-        cpu_steps = []
-        for b in batches:
-            start = cpu_steps[-1] if cpu_steps else {"state": state0, "adamw": None}
-            cpu_steps.append(TrainRun(spec, compat, ts, start["state"], "cpu", torch.float64, start["adamw"])(b))
-
-        def starts(i):
-            return (state0, None, None) if i == 0 else (cpu_steps[0]["state"], cpu_steps[0]["adamw"],
-                                                        cpu_steps[0]["mu"])
-
-        # float64 on the card, each step from the CPU's state before it
-        worst = {}
-        for i, b in enumerate(batches):
-            state, adamw, prev_mu = starts(i)
-            got = TrainRun(spec, compat, ts, state, "cuda", torch.float64, adamw)(b)
-            w = compare_step(got, cpu_steps[i], prev_mu, lr, f"{name} float64 step {i + 1}")
-            worst = {k: max(v, worst.get(k, 0.0)) for k, v in w.items()}
-
-        # f32 on the card, each step from the CPU's state before it, against
-        # the CPU's float64 step on the card's side of every tie
-        f32_worst, ties = {}, []
-        for i, b in enumerate(batches):
-            state, adamw, prev_mu = starts(i)
-            ties.append(TieSides())
-            with ties[i].record():
-                got = TrainRun(spec, compat, ts, state, "cuda", torch.float32, adamw)(b)
-            with ties[i].replay():
-                want = TrainRun(spec, compat, ts, state, "cpu", torch.float64, adamw)(b)
-            if i == 0:
-                want1 = want
-            w = compare_step(got, want, prev_mu, lr, f"{name} f32 step {i + 1}", 1e-4)
-            f32_worst = {k: max(v, f32_worst.get(k, 0.0)) for k, v in w.items()}
-        share = max(t.flip_share for t in ties)
-        if not share <= 1e-5:
-            raise AssertionError(f"{name}: the f32 step took the other side of a kink {share:.3g} of its "
-                                 "tensor's largest away")
-
-        # a wrong f32 step: the loss reads bf16-rounded predictions (the
-        # forward, and so the sides of its ties, are step 1's)
-        mutant = TrainRun(spec, compat, ts, state0, "cuda", torch.float32)
-        loss = mutant.step.loss
-        mutant.step.loss = lambda preds, batch: loss({k: v.bfloat16() for k, v in preds.items()}, batch)
-        got = mutant(batches[0])
-        # the lambda refers back to the step: without this the cycle would
-        # keep the model and its AdamW state on the card into phase 10
-        del mutant.step.loss
-        mutant_worst, failures = step_errors(got, want1, None, lr, f"{name} bf16-loss mutant", 1e-4)
-        if not failures:
-            raise AssertionError(f"{name}: the f32 check passed a step whose loss read bf16 predictions")
-        out[name] = {"float64": worst, "f32": f32_worst, "f32_ties_across": sum(t.flips for t in ties),
-                     "f32_tie_share": share, "bf16_loss_mutant": mutant_worst}
-        log(f"  small train {name}: worst share of each limit " + json.dumps(out[name]))
+        plans = camera_plan_inputs(DetectorSpec.from_config(cfg)) if name == "geometric" else None
+        out[name] = small_train_checks(cfg, name, plans)
     if [k.launches for k in counters] != launches:
         raise AssertionError("a train step launched B1 or B2")
     return out
@@ -1339,13 +1380,14 @@ def train_breakdown(step, batch, reps: int = 3) -> dict:
     return {k: float(np.median(v)) for k, v in ms.items()}
 
 
-def train_full_width(config, label: str = "") -> dict:
-    """Phase 10 (and 13c for the variants): make_train_step on base.yaml at
-    full width, batch 4, in f32 and with mixed_precision (bf16 autocast)."""
+def train_full_width(config, label: str = "", extra=None) -> dict:
+    """Phase 10 (and 13c for the variants, 14c for the culled splat):
+    make_train_step on base.yaml at full width, batch 4, in f32 and with
+    mixed_precision (bf16 autocast); `extra` goes into every sample."""
     spec, compat = DetectorSpec.from_config(config), CompatFlags.from_config(config)
     ts = TrainSpec.from_config(config)
     rng = np.random.RandomState(9)
-    batch = train_batch(spec, rng, ts.batch_size, ts.max_objects, 40)
+    batch = train_batch(spec, rng, ts.batch_size, ts.max_objects, 40, extra)
     out = {}
     for name, mixed in (("f32", False), ("bf16_mixed_precision", True)):
         g = torch.Generator().manual_seed(10)
@@ -1397,6 +1439,115 @@ JAX_LOG_KEYS = {"step", "step_seconds", "total_loss", "heatmap_loss", "offset_lo
                 "rot_loss", "vel_loss"}
 REPORT_CLASSES = ("car", "truck", "bus", "trailer", "construction_vehicle", "pedestrian", "motorcycle",
                   "bicycle", "traffic_cone", "barrier")  # Q9's report order
+
+
+def matrix_quat(m: np.ndarray) -> list:
+    """(3, 3) rotation -> unit quaternion [w, x, y, z] (nuScenes order)."""
+    t = np.trace(m)
+    if t > 0:
+        r = np.sqrt(t + 1.0) * 2
+        q = [0.25 * r, (m[2, 1] - m[1, 2]) / r, (m[0, 2] - m[2, 0]) / r, (m[1, 0] - m[0, 1]) / r]
+    elif m[0, 0] > m[1, 1] and m[0, 0] > m[2, 2]:
+        r = np.sqrt(1.0 + m[0, 0] - m[1, 1] - m[2, 2]) * 2
+        q = [(m[2, 1] - m[1, 2]) / r, 0.25 * r, (m[0, 1] + m[1, 0]) / r, (m[0, 2] + m[2, 0]) / r]
+    elif m[1, 1] > m[2, 2]:
+        r = np.sqrt(1.0 + m[1, 1] - m[0, 0] - m[2, 2]) * 2
+        q = [(m[0, 2] - m[2, 0]) / r, (m[0, 1] + m[1, 0]) / r, 0.25 * r, (m[1, 2] + m[2, 1]) / r]
+    else:
+        r = np.sqrt(1.0 + m[2, 2] - m[0, 0] - m[1, 1]) * 2
+        q = [(m[1, 0] - m[0, 1]) / r, (m[0, 2] + m[2, 0]) / r, (m[1, 2] + m[2, 1]) / r, 0.25 * r]
+    return [float(v) for v in q]
+
+
+def _yaw(a: float) -> np.ndarray:
+    return np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1.0]])
+
+
+def ring_calibrate_infos(root: Path, splits, seed: int = 0) -> None:
+    """Give the infos of `splits` a nuScenes-like calibration: six cameras
+    every 60 degrees around the car (f = 1260 at the native 1600x900, yaw
+    and mount jittered by at most 0.01 rad and 2 cm per scene), the LiDAR
+    0.9 m forward and 1.8 m up. The synthetic infos' identity intrinsics
+    put almost no frustum point on the BEV grid."""
+    rng = np.random.RandomState(seed)
+    base = np.array([[0, 0, 1.0], [-1.0, 0, 0], [0, -1.0, 0]])  # z-forward camera -> x-forward
+    scenes = {}
+    for split in splits:
+        path = root / f"nuscenes_infos_{split}.pkl"
+        data = pickle.loads(path.read_bytes())
+        for info in data["infos"]:
+            if info["scene_token"] not in scenes:
+                scenes[info["scene_token"]] = {
+                    name: {"camera_intrinsic": [[1260.0, 0, 815.0], [0, 1260.0, 452.0], [0, 0, 1]],
+                           "rotation": matrix_quat(_yaw(k * np.pi / 3 + rng.uniform(-0.01, 0.01)) @ base),
+                           "translation": (np.array([np.cos(k * np.pi / 3), 0.5 * np.sin(k * np.pi / 3), 1.5])
+                                           + rng.uniform(-0.02, 0.02, 3)).tolist()}
+                    for k, name in enumerate(info["cams"])}
+            for name, cam in info["cams"].items():
+                cam["calibrated_sensor"] = dict(scenes[info["scene_token"]][name])
+            info["lidar_calibrated_sensor"] = {"rotation": [1.0, 0, 0, 0], "translation": [0.9, 0.0, 1.8]}
+        path.write_bytes(pickle.dumps(data))
+
+
+def write_radar_pcd(path, pts) -> None:
+    """A binary nuScenes-style radar .pcd of (N, 6) [x, y, z, vx, vy, rcs]
+    points, with an integer field between them as the real files have."""
+    n = len(pts)
+    fields = [("x", "F", 4), ("y", "F", 4), ("z", "F", 4), ("id", "I", 2), ("rcs", "F", 4),
+              ("vx", "F", 4), ("vy", "F", 4)]
+    header = "\n".join([
+        "# .PCD v0.7 - Point Cloud Data file format", "VERSION 0.7",
+        "FIELDS " + " ".join(f[0] for f in fields), "SIZE " + " ".join(str(f[2]) for f in fields),
+        "TYPE " + " ".join(f[1] for f in fields), "COUNT " + " ".join("1" for _ in fields),
+        f"WIDTH {n}", "HEIGHT 1", "VIEWPOINT 0 0 0 1 0 0 0", f"POINTS {n}", "DATA binary",
+    ]) + "\n"
+    rec = np.zeros(n, np.dtype([("x", "f4"), ("y", "f4"), ("z", "f4"), ("id", "i2"), ("rcs", "f4"),
+                                ("vx", "f4"), ("vy", "f4")]))
+    for i, name in enumerate(("x", "y", "z", "vx", "vy", "rcs")):
+        rec[name] = pts[:, i]
+    rec["id"] = np.arange(n)
+    Path(path).write_bytes(header.encode() + rec.tobytes())
+
+
+def add_sweeps(root: Path, splits, lidar_points: int, radar_points: int, seed: int = 0) -> None:
+    """Give every info of `splits` what multi-sweep loading reads: one prior
+    LiDAR sweep (a .bin of `lidar_points` five-float points, 0.05 s older,
+    the ego 0.5 m behind and turned 0.02 rad) and, per radar, its key-frame
+    .pcd of `radar_points` returns, its pose, and one prior sweep (.pcd,
+    0.07 s older, the ego 0.7 m behind and turned 0.03 rad)."""
+    rng = np.random.RandomState(seed)
+    identity = {"translation": [0.0, 0.0, 0.0], "rotation": [1.0, 0.0, 0.0, 0.0]}
+
+    def pose(back, yaw):
+        return {"translation": [-back, 0.1, 0.0], "rotation": matrix_quat(_yaw(yaw))}
+
+    def radar_cloud():
+        pts = rng.randn(radar_points, 6).astype(np.float32) * [20, 20, 1, 5, 5, 10]
+        pts[:, 0] = np.abs(pts[:, 0]) + 1.0  # in front of the sensor
+        return pts.astype(np.float32)
+
+    for split in splits:
+        path = root / f"nuscenes_infos_{split}.pkl"
+        data = pickle.loads(path.read_bytes())
+        for info in data["infos"]:
+            sweep = root / f"{info['token']}_lidar_sweep1.bin"
+            cloud = np.empty((lidar_points, 5), np.float32)
+            cloud[:, :2] = rng.uniform(-50.0, 50.0, (lidar_points, 2))
+            cloud[:, 2] = rng.uniform(-4.0, 2.0, lidar_points)
+            cloud[:, 3] = rng.uniform(0.0, 1.0, lidar_points)
+            cloud[:, 4] = rng.uniform(0.0, 2.9, lidar_points)
+            cloud.tofile(sweep)
+            info["lidar_pose"] = dict(identity)
+            info["sweeps"] = [{"lidar_path": str(sweep), "pose": pose(0.5, 0.02),
+                               "calib": info["lidar_calibrated_sensor"], "time_lag_s": 0.05}]
+            for name, entry in info["radars"].items():
+                write_radar_pcd(root / entry["filename"], radar_cloud())
+                prior = root / f"{info['token']}_{name}_sweep1.pcd"
+                write_radar_pcd(prior, radar_cloud())
+                entry["pose"] = dict(identity)
+                entry["sweeps"] = [{"path": str(prior), "pose": pose(0.7, 0.03),
+                                    "calib": entry["calibrated_sensor"], "time_lag_s": 0.07}]
+        path.write_bytes(pickle.dumps(data))
 
 
 def write_nuscenes_tree(root: Path, config: dict, train: int, val: int, n_points: int) -> dict:
@@ -2251,6 +2402,332 @@ def variants(config, encoders, rng, tmp: Path) -> dict:
     return out
 
 
+def sweep_points(rng: np.random.RandomState, b: int, n: int) -> np.ndarray:
+    """`lidar_points` with the fifth, time-lag channel of num_sweeps 2:
+    0 or 0.05 s on real points, 0 on padding."""
+    pts = lidar_points(rng, b, n)
+    dt = np.where(pts.any(axis=2) & (rng.rand(b, n) < 0.5), 0.05, 0.0).astype(np.float32)
+    return np.concatenate([pts, dt[..., None]], axis=2)
+
+
+def b1_five_channels(g: torch.Generator, rng: np.random.RandomState) -> tuple:
+    """14a: B1 on the multi-sweep LiDAR chain 5->64->...->1024 against its
+    plain version (phase 2's comparison, calibration, limits and mutants):
+    8x35000x5 in bf16 and f32 (its last sample all padding), 4x and
+    1x35000x5 in f32, ragged N = 34,999, and dense clusters (f32) at
+    34,999 points and one past a multiple of the f32 tile. On 40 dense
+    rows one past the f32 tile, where cuBLAS sums the plain version in
+    another order than at the rows above, the kernel must be no further
+    from a float64 chain than the plain version is. Then its times at
+    8x35000x5 bf16 and 4x35000x5 f32 beside the plain version, the cuBLAS
+    chain and the bound. Returns the largest bf16 error, the cancelling
+    cluster's errors and the times."""
+    enc = PointNetLiDAREncoder(LidarEncoderSpec(input_channels=5)).eval()
+    with torch.no_grad():
+        for m in enc.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.weight.normal_(0.0, m.in_features ** -0.5, generator=g)
+    calibrate_point_mlp(enc.point_mlp, sweep_points(rng, 2, 4096), g)
+    widths = [5, *enc.spec.mlp_layers]
+    tile32 = pf.kernel_tile_points(torch.float32, widths)
+    log(f"  B1 points per tile for the 5-channel chain: bf16 {pf.kernel_tile_points(torch.bfloat16, widths)}, "
+        f"f32 {tile32}")
+    both, f32 = (torch.float32, torch.bfloat16), (torch.float32,)
+    err = check_b1_cases({"lidar5": enc}, [
+        ("lidar5", sweep_points(rng, 8, 35000), both),
+        ("lidar5", sweep_points(rng, 5, 35000)[:4], f32),
+        ("lidar5", sweep_points(rng, 2, 35000)[:1], f32),
+        ("lidar5", sweep_points(rng, 3, 34999), both),
+        ("lidar5-dense", dense_points(rng, 2, 34999, 5, 40.0), f32),
+        ("lidar5-dense", dense_points(rng, 2, (34000 // tile32) * tile32 + 1, 5, 40.0), f32),
+    ])
+    x, w, b = chain_args(enc, dense_points(rng, 40, tile32 + 1, 5, 40.0), torch.float32, "cuda")
+    exact = x.double()
+    for wi, bi in zip(w, b):
+        exact = torch.relu(exact @ wi.double() + bi.double())
+    exact = exact.amax(dim=1)
+    cluster = {"kernel_vs_float64": float((pf.pointnet_fused(x, w, b) - exact).abs().max()),
+               "plain_vs_float64": float((pf.pointnet_fused_reference(x, w, b) - exact).abs().max()),
+               "kernel_vs_plain": compare(pf.pointnet_fused(x, w, b), pf.pointnet_fused_reference(x, w, b),
+                                          torch.float32)["worst"]}
+    log(f"  B1 lidar5-dense {tuple(x.shape)} f32 against a float64 chain: kernel {cluster['kernel_vs_float64']:.3g}, "
+        f"plain version {cluster['plain_vs_float64']:.3g} (kernel against plain: {cluster['kernel_vs_plain']:.3g} "
+        f"of the limit)")
+    if not cluster["kernel_vs_float64"] <= cluster["plain_vs_float64"]:
+        raise AssertionError(f"B1 on a cancelling cluster is further from float64 than its plain version: {cluster}")
+    times = {"lidar_8x35000x5_bf16": time_kernel(enc, sweep_points(rng, 8, 35000)),
+             "lidar_4x35000x5_f32": time_kernel(enc, sweep_points(rng, 5, 35000)[:4], torch.float32)}
+    for what, t in times.items():
+        log(f"  B1 {what}: {t['ms']:.4f} ms median of 3 ({t['ms_min']:.4f}-{t['ms_max']:.4f}), device alone "
+            f"{t['device_ms']:.4f}, {t['tflops']:.1f} TFLOP/s, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+            f"plain {t['plain_ms']:.4f}, cuBLAS chain {t['library_ms']:.4f} ms [{card()}]")
+    return err, cluster, times
+
+
+def splat_config(config, mode: str) -> dict:
+    cfg = copy.deepcopy(config)
+    cfg["model"]["bev_fusion"].update(camera_to_bev="geometric", splat_mode=mode)
+    return cfg
+
+
+def culled_plan_inputs(spec) -> tuple:
+    """One sample's culled pair plans on the ring calibration, under the
+    dataset's keys (capacities 5 % over the largest camera's counts, as the
+    dataset sizes them), and (T_cull, U_cap)."""
+    b = spec.bev
+    cells = ring_camera_cells(spec.camera.image_size, (b.bev_h, b.bev_w), b.depth_bins,
+                              b.depth_min, b.depth_max, b.pc_range)
+    hw = cells.shape[-2] * cells.shape[-1]
+    plans, caps = precompute_culled_pairs_batch(cells, hw, b.bev_h * b.bev_w, headroom=1.05)
+    return {f"camera_{k}": plans[k] for k in PAIR_KEYS}, caps
+
+
+def splat_plans(spec) -> dict:
+    """What the dataset ships for the spec's splat mode: pair plans under
+    culled, else the frustum cells."""
+    if spec.bev.splat_mode == "culled":
+        return culled_plan_inputs(spec)[0]
+    return {"camera_cells": camera_plan_inputs(spec)["camera_cells"]}
+
+
+def small_splat_checks(config) -> dict:
+    """14b: GeometricCameraBEV in scatter and culled modes (culled on pair
+    plans alone), seeded weights with random BatchNorm statistics, card
+    against CPU in f32 (TF32 off), eval and train mode, within 1e-4 of each
+    output's scale; two launches of the culled splat give the same result
+    within 1e-5 (its scatter adds each (cell, pixel) once)."""
+    out = {}
+    for mode in ("scatter", "culled"):
+        spec = DetectorSpec.from_config(small_train_config(splat_config(config, mode)))
+        g = torch.Generator().manual_seed(14)
+        cpu = randomize_stats(port_fusion.GeometricCameraBEV(spec.bev, spec.camera.out_channels), g)
+        with torch.no_grad():
+            for m in cpu.modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=g)
+        gpu = copy.deepcopy(cpu).cuda()
+        h, w = spec.camera.image_size
+        feats = torch.randn(2, 6, spec.camera.out_channels, h // 16, w // 16, generator=g)
+        plans = {k: torch.from_numpy(np.stack([v] * 2)) for k, v in splat_plans(spec).items()}
+
+        def run(module, device):
+            kw = {k: v.to(device) for k, v in plans.items()}
+            pairs = tuple(kw[f"camera_{k}"] for k in PAIR_KEYS) if mode == "culled" else None
+            with torch.no_grad():
+                return module(feats.to(device), kw.get("camera_cells"), None, pairs)
+
+        for train in (False, True):
+            want = run(cpu.train(train), "cpu")
+            got = run(gpu.train(train), "cuda")
+            again = run(gpu.train(train), "cuda")
+            scale = float(want.abs().max())
+            err = float((got.cpu() - want).abs().max())
+            repeat = float((got - again).abs().max())
+            key = f"{mode}_{'train' if train else 'eval'}"
+            out[key] = {"max_abs_err": err, "scale": scale, "repeat_err": repeat}
+            log(f"  GeometricCameraBEV {key}: max_abs_err {err:.3g} (scale {scale:.3g}); two launches "
+                f"differ by {repeat:.3g}")
+            if not (err <= 1e-4 * scale and repeat <= 1e-5 * scale):
+                raise AssertionError(f"GeometricCameraBEV {key}: card and CPU disagree")
+    return out
+
+
+def splat_eval_step(config, mode: str, pallas_ms: float) -> dict:
+    """14c: make_eval_step on base.yaml with the geometric camera-to-BEV and
+    `mode`'s splat at full width, bf16, batch 8, uint8 cameras, 3 batches
+    after a warm-up, launch counters zeroed just before and read after;
+    logged beside phase 7's pallas step (`pallas_ms`)."""
+    cfg = splat_config(config, mode)
+    spec, compat = DetectorSpec.from_config(cfg), CompatFlags.from_config(cfg)
+    g = torch.Generator().manual_seed(4)
+    model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding)
+    model = model.init_weights(g).to("cuda", torch.bfloat16)
+    step = make_eval_step(model, compat, max_detections=spec.centernet.max_detections, eval_path_decode=True)
+    rng = np.random.RandomState(5)
+    plans = splat_plans(spec)
+    h, w = spec.camera.image_size
+    batches = [collate_fn([{
+        "camera_imgs": rng.randint(0, 256, (6, h, w, 3), np.uint8),
+        "lidar_points": lidar_points(rng, 2, spec.lidar.max_points)[0],
+        "radar_points": radar_points(rng, spec.radar.num_radars, spec.radar.max_points_per_sensor),
+        **plans,
+    } for _ in range(8)]) for _ in range(3)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step(batches[0])
+    torch.cuda.synchronize()
+    counters = (pf.pointnet_fused, bp.bev_pool_weighted_rows, bp.bev_pool_rows)
+    for k in counters:
+        k.launches = 0
+    times = []
+    for batch in batches:
+        t = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if out["boxes"].shape != (8, spec.centernet.max_detections, 7) or not all(
+                torch.isfinite(out[n]).all() for n in ("boxes", "scores", "velocities")):
+            raise AssertionError(f"{mode} eval step: bad output")
+    launches = {k.__name__: k.launches for k in counters}
+    if launches != {"pointnet_fused": 2 * len(batches), "bev_pool_weighted_rows": 0, "bev_pool_rows": 0}:
+        raise AssertionError(f"{mode} eval step launches {launches}: want B1 2 per batch, B2 and B3 none")
+    ms = float(np.median(times))
+    res = {"batch_ms": times, "batch_ms_p50": ms, "samples_per_s": 8 / ms * 1e3, "launches": launches,
+           "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "phase7_pallas_ms": pallas_ms}
+    if mode == "culled":
+        _, (res["t_cull"], res["u_cap"]) = culled_plan_inputs(spec)
+        b = spec.bev
+        res["frustum_points"] = b.depth_bins * (h // 16) * (w // 16)
+    log(f"  {mode} eval step: {ms:.2f} ms per batch of 8 (p50 of 3; phase 7's pallas step {pallas_ms:.2f}), "
+        f"{res['samples_per_s']:.1f} samples/s, "
+        f"{res['max_memory_gib']:.2f} GiB peak; launches {launches}"
+        + (f"; T_cull {res['t_cull']}, U_cap {res['u_cap']} of {res['frustum_points']} frustum points a camera"
+           if mode == "culled" else "") + f" [{card()}]")
+    del model, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def camera_bn_stats(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.camera_encoder.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def training_data_options(config, tmp: Path) -> dict:
+    """14d: `train_detect.main` at full width on a phase-11-style tree (8
+    train and 4 val samples of six 1600x900 JPEGs and a 60,000-point LiDAR
+    bin) whose infos carry one prior LiDAR sweep and, per radar, a key-frame
+    .pcd and one prior sweep, with compat.skip_augmentation false,
+    num_sweeps 2, radar_num_sweeps 2, compat.random_radar_points false and
+    camera_encoder.freeze_bn true: one epoch, then a resume into a second.
+    The restore must be bit for bit, validation must launch B1 on the
+    5-wide LiDAR chain twice per batch and train epochs never, the camera
+    BatchNorm statistics must keep their init."""
+    data = tmp / "sweeps"
+    out = {"data": write_nuscenes_tree(data, config, train=8, val=4, n_points=60_000)}
+    t = time.perf_counter()
+    add_sweeps(data, ("train", "val"), lidar_points=60_000, radar_points=125, seed=12)
+    out["sweeps_write_s"] = time.perf_counter() - t
+    cfg = copy.deepcopy(config)
+    cfg["dataset"].update(data_root=str(data), num_sweeps=2, radar_num_sweeps=2)
+    cfg["compat"].update(skip_augmentation=False, random_radar_points=False)
+    cfg["model"]["camera_encoder"]["freeze_bn"] = True
+    cfg["train"]["checkpoint"].update(save_dir=str(tmp / "sweep_checkpoints"), save_interval=1)
+    cfg["train"]["logging"]["log_dir"] = str(tmp / "sweep_logs")
+    cfg["train"]["num_epochs"] = 1
+    ts = TrainSpec.from_config(cfg)
+
+    train_ds = NuScenesDataset(split="train", config=cfg, seed=ts.seed, emit_uint8=True)
+    sample = train_ds[0]
+    if sample["lidar_points"].shape != (35000, 5) or set(np.unique(sample["lidar_points"][:, 4])) != {
+            0.0, np.float32(0.05)}:
+        raise AssertionError("the LiDAR points are not both sweeps with their time lags")
+    if set(np.unique(sample["radar_points"][..., 6])) != {0.0, np.float32(0.07)}:
+        raise AssertionError("the radar points are not both sweeps with their time lags")
+    loader_ms = []
+    t = time.perf_counter()
+    for _ in DataLoader(train_ds, batch_size=ts.batch_size, prefetch=0):
+        loader_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        record = {}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with traced_trainer(record):
+            first = train_detect.main(config=cfg, device="cuda")
+            saved = trainer_state(first)
+            width = first.model.lidar_encoder.point_mlp.mlp1.in_features
+            stats = [camera_bn_stats(first.model)]
+            del first
+            torch.cuda.empty_cache()
+            cfg2 = copy.deepcopy(cfg)
+            cfg2["train"]["num_epochs"] = 2
+            cfg2["train"]["resume"]["enable"] = True
+            second = train_detect.main(config=cfg2, device="cuda")
+            stats.append(camera_bn_stats(second.model))
+        out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del second
+        torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+    if width != 5:
+        raise AssertionError(f"the LiDAR encoder takes {width} channels, not the data's 5")
+    for st in stats:
+        for k, v in st.items():
+            if not bool((v == (0.0 if k.endswith("mean") else 1.0)).all()):
+                raise AssertionError(f"freeze_bn: camera statistic {k} moved in training")
+    restored = record["load_checkpoint"]
+    if len(restored) != 1 or restored[0]["epoch"] != 0:
+        raise AssertionError(f"the resumed run did not restore epoch 0: {restored}")
+    n_arrays = assert_states_equal(restored[0]["state"], saved)
+    epochs, evals = record["train_one_epoch"], record["evaluate"]
+    val_batches = (4 + ts.batch_size - 1) // ts.batch_size
+    if any(e["b1_launches"] for e in epochs) or any(e["b1_launches"] != 2 * val_batches for e in evals):
+        raise AssertionError(f"B1 launches: train epochs {[e['b1_launches'] for e in epochs]}, "
+                             f"validations {[e['b1_launches'] for e in evals]} (want 0 and {2 * val_batches})")
+    log_lines = [json.loads(x) for x in (tmp / "sweep_logs" / "train_log.jsonl").read_text().splitlines()]
+    losses = [ln["total_loss"] for ln in log_lines]
+    steps_per_epoch = 8 // ts.batch_size
+    if len(losses) != 2 * steps_per_epoch or not all(np.isfinite(losses)):
+        raise AssertionError(f"losses {losses}")
+    step_s = [sum(ln["step_seconds"] for ln in log_lines[i * steps_per_epoch:(i + 1) * steps_per_epoch])
+              for i in range(2)]
+    out.update({
+        "epoch_s": [e["s"] for e in epochs], "step_s_per_epoch": step_s,
+        "loader_ms_per_batch": loader_ms, "validation_s": [e["s"] for e in evals],
+        "b1_launches_per_validation": [e["b1_launches"] for e in evals], "lidar_width": width,
+        "restored_arrays_bit_exact": n_arrays, "losses": losses,
+    })
+    log(f"  epochs {', '.join(f'{x:.2f}' for x in out['epoch_s'])} s, of which train steps "
+        f"{', '.join(f'{x:.2f}' for x in step_s)} s; loader {', '.join(f'{x:.0f}' for x in loader_ms)} ms per "
+        f"batch of {ts.batch_size} (one thread); validation {', '.join(f'{x:.2f}' for x in out['validation_s'])} s "
+        f"with B1 {out['b1_launches_per_validation']} launches on the 5-wide chain; restore bit-exact over "
+        f"{n_arrays} arrays; camera BN statistics unchanged; peak {out['max_memory_gib']:.2f} GiB [{card()}]")
+    return out
+
+
+def training_options(config, g: torch.Generator, rng: np.random.RandomState, tmp: Path,
+                     pallas_ms: float) -> dict:
+    """Phase 14; `pallas_ms` is phase 7's eval step, logged beside 14c's."""
+    out = {}
+    log("  14a: B1 at C_in = 5 (multi-sweep LiDAR) against its plain version (TF32 off)")
+    torch.backends.cudnn.allow_tf32 = False
+    out["b1_c_in5_max_err"], out["b1_c_in5_cluster"], out["b1_c_in5"] = b1_five_channels(g, rng)
+
+    log("  14b: the scatter and culled splats, a culled train step and an augmented one, card vs CPU")
+    out["small_splats"] = small_splat_checks(config)
+    counters = (pf.pointnet_fused, bp.bev_pool_weighted_rows)
+    launches = [k.launches for k in counters]
+    culled = small_train_config(splat_config(config, "culled"))
+    out["small_train_culled"] = small_train_checks(
+        culled, "culled", splat_plans(DetectorSpec.from_config(culled)), n_steps=1, mutant=False)
+    augmented = small_train_config(config)
+    augmented["compat"]["skip_augmentation"] = False
+    out["small_train_augmented"] = small_train_checks(augmented, "augmented", n_steps=1, mutant=False)
+    if [k.launches for k in counters] != launches:
+        raise AssertionError("a train step launched B1 or B2")
+
+    log("  14c: full width, geometric culled and scatter splats (bf16 eval at batch 8; train at batch 4 "
+        "with augmentation, geometry frozen)")
+    torch.backends.cudnn.allow_tf32 = True  # the eval steps run in bf16 regardless
+    out["culled_eval"] = splat_eval_step(config, "culled", pallas_ms)
+    torch.backends.cudnn.allow_tf32 = False
+    culled_train = splat_config(config, "culled")
+    culled_train["compat"]["skip_augmentation"] = False
+    out["culled_train"] = train_full_width(culled_train, "culled, augmented: ",
+                                           splat_plans(DetectorSpec.from_config(culled_train)))
+    torch.backends.cudnn.allow_tf32 = True
+    out["scatter_eval"] = splat_eval_step(config, "scatter", pallas_ms)
+
+    log("  14d: train_detect.main with the training-data options (f32, TF32 off)")
+    torch.backends.cudnn.allow_tf32 = False
+    out["training_data_options"] = training_data_options(config, tmp)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2347,6 +2824,13 @@ def main() -> int:
         log(f"  phase 13 took {time.perf_counter() - t:.1f} s")
         log("  " + json.dumps({"variants": var}))
 
+        log("phase 14: the scatter and culled splats and the training-data options (augmentation, "
+            "multi-sweep LiDAR and radar, camera freeze_bn)")
+        t = time.perf_counter()
+        opts = training_options(config, g, rng, Path(tmp), geo["batch_ms_p50"])
+        log(f"  phase 14 took {time.perf_counter() - t:.1f} s")
+        log("  " + json.dumps({"training_options": opts}))
+
     def entry(name, launches, err, t):
         source, replaces = KERNELS[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2374,7 +2858,13 @@ def main() -> int:
                                  for k, v in var["full_width"].items()},
                  "ablation_cli": var["ablation"]["launches"], "engine_late": var["engine"]["launches"]},
              f32={shape: {k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-                  for shape, t in var["b1_f32"].items()}),
+                  for shape, t in var["b1_f32"].items()},
+             c_in5={shape: {k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                    for shape, t in opts["b1_c_in5"].items()},
+             c_in5_max_abs_err=opts["b1_c_in5_max_err"],
+             culled_eval_launches=opts["culled_eval"]["launches"]["pointnet_fused"],
+             scatter_eval_launches=opts["scatter_eval"]["launches"]["pointnet_fused"],
+             training_data_options_validation_launches=opts["training_data_options"]["b1_launches_per_validation"]),
         # launches: phase 7, the geometric eval path
         dict(entry("bev_pool_weighted", geo["launches"]["bev_pool_weighted_rows"],
                    pool_err["bev_pool_weighted"], pools["bev_pool_weighted"]),

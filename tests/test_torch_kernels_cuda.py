@@ -77,14 +77,16 @@ def test_kernel_matches_reference_on_card(cuda_device):
         ((4, 64, 128, 256), "under one tile"),
         ((4, 32, 50, 64, 96, 66), "one past a tile"),
         ((4, 64, 528, 264), "one past a tile"),
+        ((5, 64, 128, 256, 512, 1024), "one past a tile"),
     ],
-    ids=["blocked-n1", "blocked-under", "ragged-widths", "partial-n-slabs"],
+    ids=["blocked-n1", "blocked-under", "ragged-widths", "partial-n-slabs", "multi-sweep-c5"],
 )
 def test_f32_kernel_tile_edges_on_card(cuda_device, mask_padding, widths, edge):
     """The f32 kernel at the edges of its own tile (N = 1 mod it, N below
     it), on a chain whose widths are not multiples of 4, where FMA loops run
-    before, between and after a register-blocked layer, and on blocked
-    layers whose last N-slab is partial."""
+    before, between and after a register-blocked layer, on blocked layers
+    whose last N-slab is partial, and on the multi-sweep LiDAR chain's five
+    input channels."""
     tile = kernel_tile_points(torch.float32, widths)
     assert tile in (16, 32, 64)
     n = 5 * tile + 1 if edge == "one past a tile" else tile - 1

@@ -247,13 +247,20 @@ def test_load_jax_variables_is_strict():
 
 
 def test_unported_options_raise():
+    """Every splat mode of the JAX package builds (scatter and culled since
+    their port); an unknown one raises."""
     import dataclasses
 
     spec = to_port_spec(narrow_spec())
-    for mode in ("scatter", "culled"):  # geometric splats not ported yet
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_det.MultiModal3DDetector(dataclasses.replace(spec, bev=dataclasses.replace(
-                spec.bev, camera_to_bev="geometric", splat_mode=mode)))
+
+    def build(mode):
+        return port_det.MultiModal3DDetector(dataclasses.replace(spec, bev=dataclasses.replace(
+            spec.bev, camera_to_bev="geometric", splat_mode=mode)))
+
+    for mode in ("matmul", "pallas", "scatter", "culled"):
+        assert build(mode).fusion.geometric_camera_bev.spec.splat_mode == mode
+    with pytest.raises(ValueError, match="splat_mode"):
+        build("gather")
 
 
 def test_seeded_init_is_reproducible():

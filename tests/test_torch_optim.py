@@ -166,7 +166,8 @@ def test_batch_norm_refuses_cumulative_average():
 
 def test_train_step_device_and_unported_options():
     """No fallback hides the device: without a GPU the train step raises
-    unless the caller names the CPU. Augmentation and freeze_bn raise."""
+    unless the caller names the CPU. Augmentation (Q14 off) and freeze_bn,
+    ported since, build: the step augments, the camera BNs stay in eval."""
     from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
     from torch_port_helpers import narrow_spec, to_port_spec
 
@@ -177,9 +178,9 @@ def test_train_step_device_and_unported_options():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_loop.make_train_step(model, port_loop.make_optimizer(train, compat), train, compat)
     augment = port_config.CompatFlags(skip_augmentation=False)
-    with pytest.raises(NotImplementedError, match="A8"):
-        port_loop.make_train_step(model, port_loop.make_optimizer(train, augment), train, augment, device="cpu")
+    step = port_loop.make_train_step(model, port_loop.make_optimizer(train, augment), train, augment, device="cpu")
+    assert step.augment == port_config.AugmentSpec()
     frozen = MultiModal3DDetector(dataclasses.replace(
         spec, camera=dataclasses.replace(spec.camera, freeze_bn=True)))
-    with pytest.raises(NotImplementedError, match="freeze_bn"):
-        port_loop.make_train_step(frozen, port_loop.make_optimizer(train, compat), train, compat, device="cpu")
+    port_loop.make_train_step(frozen, port_loop.make_optimizer(train, compat), train, compat, device="cpu")
+    assert frozen.training and not frozen.camera_encoder.channel_proj_bn.training

@@ -34,9 +34,10 @@ from bevfusion_multimodal_3d_object_detection_tpu import config as jax_config
 from bevfusion_multimodal_3d_object_detection_tpu.models import detector as jax_det
 from bevfusion_multimodal_3d_object_detection_tpu.train import loop as jax_loop
 from bevfusion_multimodal_3d_object_detection_tpu_torch import config as port_config
-from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import chunk_plans
+from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import PAIR_KEYS, chunk_plans
 from bevfusion_multimodal_3d_object_detection_tpu_torch.models import detector as port_det
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import bev_pool, pointnet_fused
+from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.bev_splat import precompute_culled_pairs_batch
 from bevfusion_multimodal_3d_object_detection_tpu_torch.train import loop as port_loop
 from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.convert import load_jax_variables
 from chip_smoke import TieSides, ring_camera_cells
@@ -53,13 +54,22 @@ def train_spec_of(mode):
     if mode == "geometric":
         # splat_mode pallas with plans in the batch: training takes the matmul
         return narrow_spec(bev=10, camera_to_bev="geometric", depth_bins=4, splat_mode="pallas")
+    if mode == "freeze_bn":
+        # camera_encoder.freeze_bn (camera only: the float64 reference costs less)
+        spec = narrow_spec("camera")
+        return dataclasses.replace(spec, camera=dataclasses.replace(spec.camera, freeze_bn=True))
+    if mode == "culled":
+        # the culled splat trains on its pair plans (camera only: the
+        # float64 reference costs less)
+        return narrow_spec("camera", bev=10, camera_to_bev="geometric", depth_bins=4, splat_mode="culled")
     return narrow_spec()
 
 
 def make_batches(spec, n_cols=9, uint8=True):
     """Two collated batches of 2 samples: cameras (uint8 or float), points,
     M = 8 box rows of which 3 and 4 are real, labels -1 on padded rows;
-    geometric specs get ring-calibration cells and chunk plans."""
+    geometric specs get ring-calibration cells and chunk plans, or under
+    ``splat_mode: culled`` the pair plans alone, as the dataset ships them."""
     out = []
     for seed in (0, 1):
         cams, lidar, radar = detector_inputs(spec, batch=2, seed=seed)
@@ -82,15 +92,22 @@ def make_batches(spec, n_cols=9, uint8=True):
             b = spec.bev
             cells = ring_camera_cells(spec.camera.image_size, (b.bev_h, b.bev_w), b.depth_bins,
                                       b.depth_min, b.depth_max, b.pc_range)
-            plans = chunk_plans(cells, b.bev_h * b.bev_w)
-            batch["camera_cells"] = np.stack([cells] * 2)
-            batch.update({f"camera_{k}": np.stack([v] * 2) for k, v in plans.items()})
+            if b.splat_mode == "culled":
+                hw = cells.shape[-2] * cells.shape[-1]
+                plans, _ = precompute_culled_pairs_batch(cells, hw, b.bev_h * b.bev_w, headroom=1.05)
+                batch.update({f"camera_{k}": np.stack([plans[k]] * 2) for k in PAIR_KEYS})
+            else:
+                plans = chunk_plans(cells, b.bev_h * b.bev_w)
+                batch["camera_cells"] = np.stack([cells] * 2)
+                batch.update({f"camera_{k}": np.stack([v] * 2) for k, v in plans.items()})
         out.append(batch)
     return out
 
 
 def make_variables(spec, batch, seed=13):
     kw = {"camera_cells": jnp.asarray(batch["camera_cells"][:1])} if "camera_cells" in batch else {}
+    if "camera_seg_idx" in batch:
+        kw["camera_pairs"] = tuple(jnp.asarray(batch[f"camera_{k}"][:1]) for k in PAIR_KEYS)
     args = [jnp.asarray(a[:1]) for a in detector_inputs(spec)]
     init = jax_det.MultiModal3DDetector(spec=spec).init({"params": KEY}, *args, **kw)
     return random_variables(init, seed)
@@ -248,13 +265,14 @@ def assert_step_matches(got, want, prev_mu, grad_norm_rtol=1e-5):
                                        err_msg=name)
 
 
-def train_runs(mode):
-    """The batches, variables and the reference's (exact) records of two
-    steps for `mode`: pseudo takes uint8 cameras and 9-column boxes,
-    geometric float cameras and 7-column boxes (Q12: zero velocity
-    targets)."""
+def train_runs(mode, steps=2):
+    """The batches, variables and the reference's (exact) records of
+    `steps` steps for `mode`: pseudo and freeze_bn take uint8 cameras and
+    9-column boxes, geometric and culled float cameras and 7-column boxes
+    (Q12: zero velocity targets)."""
     spec = train_spec_of(mode)
-    batches = make_batches(spec, n_cols=9 if mode == "pseudo" else 7, uint8=mode == "pseudo")
+    pseudo = mode in ("pseudo", "freeze_bn")
+    batches = make_batches(spec, n_cols=9 if pseudo else 7, uint8=pseudo)[:steps]
     variables = make_variables(spec, batches[0])
     return {"spec": spec, "batches": batches, "variables": variables,
             "exact": jax_steps(spec, variables, batches, exact=True)}

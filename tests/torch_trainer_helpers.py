@@ -11,6 +11,7 @@ import numpy as np
 
 from bevfusion_multimodal_3d_object_detection_tpu_torch.config import load_config
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data.converter import write_synthetic_infos
+from chip_smoke import write_radar_pcd
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -24,26 +25,6 @@ def lidar_cloud(rng, n_points):
     pts[:, 3] = rng.uniform(0.0, 255.0, n_points)
     pts[:, 4] = rng.randint(0, 32, n_points)
     return pts
-
-
-def write_radar_pcd(path, pts):
-    """A binary nuScenes-style radar .pcd of (N, 6) [x, y, z, vx, vy, rcs]
-    points, with an integer field between them as the real files have."""
-    n = len(pts)
-    fields = [("x", "F", 4), ("y", "F", 4), ("z", "F", 4), ("id", "I", 2), ("rcs", "F", 4),
-              ("vx", "F", 4), ("vy", "F", 4)]
-    header = "\n".join([
-        "# .PCD v0.7 - Point Cloud Data file format", "VERSION 0.7",
-        "FIELDS " + " ".join(f[0] for f in fields), "SIZE " + " ".join(str(f[2]) for f in fields),
-        "TYPE " + " ".join(f[1] for f in fields), "COUNT " + " ".join("1" for _ in fields),
-        f"WIDTH {n}", "HEIGHT 1", "VIEWPOINT 0 0 0 1 0 0 0", f"POINTS {n}", "DATA binary",
-    ]) + "\n"
-    rec = np.zeros(n, np.dtype([("x", "f4"), ("y", "f4"), ("z", "f4"), ("id", "i2"), ("rcs", "f4"),
-                                ("vx", "f4"), ("vy", "f4")]))
-    for i, name in enumerate(("x", "y", "z", "vx", "vy", "rcs")):
-        rec[name] = pts[:, i]
-    rec["id"] = np.arange(n)
-    pathlib.Path(path).write_bytes(header.encode() + rec.tobytes())
 
 
 def write_test_tree(data_root, samples_per_split=4, image_hw=(36, 60), n_points=500, seed=0,
