@@ -36,6 +36,10 @@ def main(argv: Optional[List[str]] = None) -> List[Row]:
                         help="Execution device")
     args = parser.parse_args(argv)
 
+    from .utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
+
     import torch
 
     from .config import CompatFlags, DetectorSpec, load_config

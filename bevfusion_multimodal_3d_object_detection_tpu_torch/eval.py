@@ -37,6 +37,10 @@ import numpy as np
 
 
 def main(config_path: Optional[str] = None, device=None) -> Dict:
+    from .utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
+
     from .config import CompatFlags, DetectorSpec, PostProcessSpec, TrainSpec, load_config
     from .data.dataset import DataLoader, NuScenesDataset, collate_fn
     from .models.detector import MultiModal3DDetector

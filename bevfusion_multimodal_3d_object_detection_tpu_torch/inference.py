@@ -31,6 +31,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     parser.add_argument("--batch", type=int, default=None, help="Run batch inference on N samples")
     args = parser.parse_args(argv)
 
+    from .utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
+
     from .data.dataset import NuScenesDataset
     from .inference_engine import InferenceEngine
 

@@ -175,7 +175,15 @@ class _PointEncoder(nn.Module):
 
     def _folded(self, dtype: torch.dtype, device: torch.device):
         """Folded weights in `dtype` and f32 biases on `device`, made once and
-        reused until a parameter or buffer of the MLP changes."""
+        reused until a parameter or buffer of the MLP changes.
+
+        While `torch.export` (or `torch.compile`) traces, the fold is made in
+        the graph from the module's own parameters and buffers, with no
+        cache: the traced tensors have no data pointer, and the weights stay
+        lifted parameters rather than constants."""
+        if torch.compiler.is_compiling():
+            weights, biases = self.point_mlp.folded()
+            return [w.to(device, dtype).contiguous() for w in weights], [b.to(device) for b in biases]
         tensors = [*self.point_mlp.parameters(), *self.point_mlp.buffers()]
         key = (dtype, device, tuple((t.data_ptr(), t._version) for t in tensors))
         if self._fold_cache is None or self._fold_cache[0] != key:

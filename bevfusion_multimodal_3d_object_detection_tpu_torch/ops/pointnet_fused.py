@@ -9,9 +9,15 @@ as hand-written CUDA C++ for Hopper (``csrc/pointnet_fused.cu``), built with
 - `pointnet_fused_reference`: the plain PyTorch version of the same function,
   including the rounding to the working dtype between layers. The CPU path
   and the kernel's oracle.
-- `pointnet_fused`: the wrapper. A CPU tensor takes the plain version; a CUDA
-  tensor launches the kernel or raises. `pointnet_fused.launches` counts the
-  kernel launches.
+- `pointnet_fused`: the wrapper. It checks the arguments and calls the
+  opaque custom op ``bmod_torch::pointnet_fused`` (`torch.library`), so that
+  `torch.export` records the whole chain as one node and an exported serving
+  graph runs the same function as the live one. The op's implementation takes
+  the plain version for a CPU tensor and launches the kernel for a CUDA
+  tensor, or raises; its fake implementation gives the (B, feat) output in
+  the points' dtype. `pointnet_fused.launches` counts the kernel launches.
+  An exported program that holds the op loads only in a process that has
+  imported this module.
 - `kernel_tile_points`: the kernel's points per tile (bf16: 128; f32: 64,
   32 or 16, the most whose activation buffers fit in shared memory).
 
@@ -112,10 +118,29 @@ def pointnet_fused(
     in; `biases[i]`: (C_{i+1},) float32. A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel."""
     _check(points, weights, biases)
+    return _pointnet_fused_op(points, list(weights), list(biases), mask_padding)
+
+
+@torch.library.custom_op("bmod_torch::pointnet_fused", mutates_args=())
+def _pointnet_fused_op(
+    points: torch.Tensor,
+    weights: list[torch.Tensor],
+    biases: list[torch.Tensor],
+    mask_padding: bool,
+) -> torch.Tensor:
     if points.device.type == "cpu":
         return pointnet_fused_reference(points, weights, biases, mask_padding)
     if points.device.type != "cuda":
         raise ValueError(f"pointnet_fused runs on cpu or cuda, not {points.device}")
+    return _launch(points, weights, biases, mask_padding)
+
+
+@_pointnet_fused_op.register_fake
+def _(points, weights, biases, mask_padding):
+    return points.new_empty((points.shape[0], weights[-1].shape[1]))
+
+
+def _launch(points, weights, biases, mask_padding: bool) -> torch.Tensor:
     tensors = [points, *weights, *biases]
     for t in tensors:
         if not t.is_contiguous():

@@ -7,6 +7,8 @@ class heatmap as a max over every object's truncated gaussian, and the sparse
 regression targets at the centres. The JAX package picks one of three
 formulations of the heatmap max by grid size; they are bitwise identical, so
 the port keeps one (a scatter-max of each object's plane into its class).
+`prepare_centernet_targets_host` (``:263-301``) takes the reference-style
+batch dict of host arrays and pads or cuts M to `max_objects` first.
 
 Layouts are the JAX package's, NHWC: heatmap (B, H, W, C); `ind` indexes the
 flattened H*W axis as y * W + x.
@@ -14,8 +16,9 @@ flattened H*W axis as y * W + x.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..config import DEFAULT_PC_RANGE
@@ -166,3 +169,39 @@ def prepare_centernet_targets(
         "target_rot": target_rot,
         "target_vel": target_vel,
     }
+
+
+def prepare_centernet_targets_host(
+    batch: Dict,
+    pc_range: Optional[Sequence[float]] = None,
+    bev_size: Tuple[int, int] = (50, 50),
+    num_classes: int = 10,
+    max_objects: int = 500,
+    gaussian_overlap: float = 0.7,
+    min_radius: int = 2,
+    corrected_gaussian_radius: bool = False,
+    device=None,
+) -> Dict[str, torch.Tensor]:
+    """`prepare_centernet_targets` on a reference-style batch dict
+    ({'gt_boxes': (B, M, 7), 'gt_labels': (B, M)} array-likes), with M
+    zero-padded (labels -1) or cut to `max_objects`, as the JAX wrapper
+    does for its static signature (ref interface: centernet_target.py:170-186).
+    The targets are made on `device` (the CPU by default)."""
+    gt_boxes = np.asarray(batch["gt_boxes"], dtype=np.float32)
+    gt_labels = np.asarray(batch["gt_labels"], dtype=np.int64)
+    m = gt_labels.shape[1]
+    if m < max_objects:
+        gt_boxes = np.pad(gt_boxes, ((0, 0), (0, max_objects - m), (0, 0)))
+        gt_labels = np.pad(gt_labels, ((0, 0), (0, max_objects - m)), constant_values=-1)
+    else:
+        gt_boxes, gt_labels = gt_boxes[:, :max_objects], gt_labels[:, :max_objects]
+    return prepare_centernet_targets(
+        torch.as_tensor(gt_boxes, device=device),
+        torch.as_tensor(gt_labels, device=device),
+        pc_range=tuple(pc_range) if pc_range is not None else None,
+        bev_size=bev_size,
+        num_classes=num_classes,
+        gaussian_overlap=gaussian_overlap,
+        min_radius=min_radius,
+        corrected_gaussian_radius=corrected_gaussian_radius,
+    )

@@ -5,6 +5,7 @@
       --model checkpoints/best_model.msgpack [--config configs/base.yaml]
       [--host 127.0.0.1] [--port 8080] [--batch-size 8] [--max-delay-ms 5]
       [--score-threshold 0.3] [--f32] [--no-fold-bn] [--device cuda|cpu]
+      [--aot PATH | --export-aot PATH]
 
 `serving.InferenceServer` (request coalescing into fixed-size batches,
 bf16 and folded camera BatchNorms by default) behind
@@ -14,9 +15,15 @@ port and prints it. SIGTERM or SIGINT drains: the server stops accepting,
 in-flight requests finish, and the process exits 0; a drain that takes
 longer than ``--drain-timeout`` exits 1.
 
-Not ported: ``--data-parallel`` above 1 (ROADMAP A13), ``--aot`` and
-``--export-aot`` (A12); each raises. ``--pallas`` is accepted and changes
-nothing: the port's eval path always runs the fused PointNet kernel.
+``--export-aot PATH`` writes the serving model's `torch.export` artifact
+(`utils.aot`, both wire signatures, no weights) and exits; ``--aot PATH``
+serves from one, with the weights of ``--model`` (or the seeded ones). The
+two exclude each other, as in the JAX CLI. An artifact serves on the device
+type it was exported on.
+
+Not ported: ``--data-parallel`` above 1 (ROADMAP A13), which raises.
+``--pallas`` is accepted and changes nothing: the port's eval path always
+runs the fused PointNet kernel.
 """
 
 from __future__ import annotations
@@ -49,15 +56,30 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="max seconds to wait for in-flight requests on SIGTERM/SIGINT before forcing exit")
     ap.add_argument("--data-parallel", type=int, default=1,
                     help="multi-GPU serving: not ported yet (ROADMAP A13)")
-    ap.add_argument("--aot", default=None, metavar="PATH", help="not ported yet (ROADMAP A12)")
-    ap.add_argument("--export-aot", default=None, metavar="PATH", help="not ported yet (ROADMAP A12)")
+    ap.add_argument("--aot", default=None, metavar="PATH",
+                    help="serve from an AOT artifact (utils/aot.py) instead of the live model code; "
+                    "checks its shapes at startup")
+    ap.add_argument("--export-aot", default=None, metavar="PATH",
+                    help="export the serving model as an AOT artifact (torch.export, both wire "
+                    "signatures) and exit")
     args = ap.parse_args(argv)
+    if args.export_aot and args.aot:
+        raise SystemExit(
+            "--export-aot and --aot are mutually exclusive (exporting needs the live model, "
+            "not a loaded artifact)"
+        )
+    if args.export_aot and args.data_parallel > 1:
+        raise SystemExit(
+            "--export-aot requires an unpartitioned server: drop --data-parallel for the export "
+            "(artifacts are traced on one device; --data-parallel applies to live serving only)"
+        )
     if args.data_parallel > 1:
         raise NotImplementedError("--data-parallel > 1 (multi-GPU serving) is not ported yet (ROADMAP A13)")
-    if args.aot or args.export_aot:
-        raise NotImplementedError("--aot / --export-aot (AOT serving artifacts) are not ported yet (ROADMAP A12)")
 
     from .serving import InferenceServer, make_http_server
+    from .utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
 
     server = InferenceServer(
         model_path=args.model,
@@ -68,8 +90,17 @@ def main(argv: Optional[List[str]] = None) -> None:
         use_bf16=not args.f32,
         fold_bn=not args.no_fold_bn,
         device=args.device,
+        aot_path=args.aot,
     )
-    print(f"Warming up the serving model (batch={args.batch_size}, {server.device}) ...", flush=True)
+    if args.export_aot:
+        from .utils.aot import export_serving_artifact
+
+        meta = export_serving_artifact(server, args.export_aot)
+        print(f"AOT artifact written to {args.export_aot} (batch={meta['batch_size']}, "
+              f"signatures={meta['signatures']}, platforms={meta['platforms']})", flush=True)
+        return
+    source = f"AOT artifact {args.aot}" if args.aot else "the serving model"
+    print(f"Warming up {source} (batch={args.batch_size}, {server.device}) ...", flush=True)
     with server:  # start() warms up before the socket opens
         httpd = make_http_server(server, args.host, args.port,
                                  max_request_bytes=int(args.max_request_mb * 1024 * 1024))

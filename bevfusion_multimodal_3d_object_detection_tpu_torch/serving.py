@@ -1,7 +1,7 @@
 """Batched inference server on one GPU, and its HTTP front end.
 
 Port of ``bevfusion_multimodal_3d_object_detection_tpu/serving.py:41-648``
-(without the mesh and AOT options, ROADMAP A13 and A12):
+(without the mesh option, ROADMAP A13):
 
 - one forward + decode function over a fixed `batch_size`; partial batches
   are padded and the padding rows dropped on the way out;
@@ -15,6 +15,9 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/serving.py:41-648``
   small results copy to pinned host memory behind an event;
 - per-request futures; `stop()` fails queued requests with
   `ServerStoppedError`;
+- `aot_path=`: serve from an artifact of `utils.aot.export_serving_artifact`
+  (one `torch.export` program per wire signature) with this server's own
+  weights, in place of the live model code;
 - `make_http_server`: a stdlib ThreadingHTTPServer around a server
   (``/healthz``, ``/stats``, ``POST /infer`` in npz or JSON).
 
@@ -67,6 +70,7 @@ class InferenceServer:
         variables: Optional[Dict] = None,
         device=None,
         model_path: Optional[str] = None,
+        aot_path: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         self.config = config if config is not None else load_config(config_path)
@@ -108,6 +112,14 @@ class InferenceServer:
         else:
             x0, y0, _, x1, y1, _ = self.spec.bev.pc_range
             self.voxel_size = ((x1 - x0) / self.spec.bev.bev_w, (y1 - y0) / self.spec.bev.bev_h)
+
+        self.aot_meta = None
+        if aot_path is not None:
+            # the artifact's programs replace _serve; startup checks its
+            # shapes, modalities, dtype, fold_bn and device against this server
+            from .utils.aot import attach_aot_serving
+
+            self.aot_meta = attach_aot_serving(self, aot_path)
 
         self._queue: queue.Queue = queue.Queue()
         self._stop = threading.Event()
@@ -244,8 +256,12 @@ class InferenceServer:
         if pending is not None:
             self._finish(*pending)
 
-    @torch.inference_mode()
     def _serve(self, cams: torch.Tensor, lidar: torch.Tensor, radars: torch.Tensor):
+        with torch.inference_mode():
+            return self._serve_body(cams, lidar, radars)
+
+    def _serve_body(self, cams: torch.Tensor, lidar: torch.Tensor, radars: torch.Tensor):
+        """Forward + decode of one staged batch; `utils.aot` exports it."""
         s = self.spec
         if cams.dtype == torch.uint8:
             cams = normalize_images(cams, size=s.camera.image_size)
@@ -262,9 +278,9 @@ class InferenceServer:
             class_always_zero=self.compat.decode_class_always_zero,
         )
 
-    def _launch(self, samples: List[Dict]):
-        """Stage and enqueue one batch; returns (host outputs, event) without
-        waiting for the device."""
+    def _stage(self, samples: List[Dict]):
+        """Samples (at most batch_size) -> the (cams, lidar, radars) device
+        tensors of one padded batch, as `_serve` takes them."""
         n = len(samples)
         if len({np.asarray(s["camera_imgs"]).dtype for s in samples}) > 1:
             # np.stack would promote uint8 rows to float without normalizing
@@ -288,9 +304,12 @@ class InferenceServer:
         cams = stage("camera_imgs")
         if cams.dtype != torch.uint8:
             cams = cams.to(self.dtype)
-        out = self._serve(
-            cams, stage("lidar_points").to(self.dtype), stage("radar_points").to(self.dtype)
-        )
+        return cams, stage("lidar_points").to(self.dtype), stage("radar_points").to(self.dtype)
+
+    def _launch(self, samples: List[Dict]):
+        """Stage and enqueue one batch; returns (host outputs, event) without
+        waiting for the device."""
+        out = self._serve(*self._stage(samples))
         host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
         event = None
         if self.device.type == "cuda":

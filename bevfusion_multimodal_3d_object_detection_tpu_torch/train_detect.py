@@ -21,8 +21,10 @@ defaults, not the yaml's ``dataset.augmentation`` values (a followed quirk).
 `main(config_path, device=None, config=None)` runs the same from Python
 (`device="cpu"` for the CPU). ``infer`` runs `inference`: the first val
 sample of ``./data/nuscenes`` through the `InferenceEngine` on
-``configs/base.yaml``, without the figure. Not ported: ``debug.profile``
-(ROADMAP A12) and ``parallel.*`` (A13); each raises.
+``configs/base.yaml``, without the figure. ``debug.profile: true`` traces
+the first epoch with `torch.profiler` into ``<log_dir>/profile``
+(`utils.profiling.profile_trace`). Not ported: ``parallel.*`` (ROADMAP
+A13), which raises.
 """
 
 from __future__ import annotations
@@ -38,13 +40,12 @@ from .data.dataset import DataLoader, NuScenesDataset, collate_fn
 from .models.detector import MultiModal3DDetector
 from .train.checkpoint import is_committed_checkpoint, latest_checkpoint
 from .train.loop import Trainer, with_data_widths
+from .utils.cache import enable_compilation_cache
 from .utils.metrics import save_and_print_metrics
+from .utils.profiling import profile_trace
 
 
 def _refuse_unported(config: Dict) -> None:
-    debug = config.get("debug", {}) or {}
-    if debug.get("profile", False):
-        raise NotImplementedError("debug.profile is not ported yet (ROADMAP A12)")
     par = config.get("parallel", {}) or {}
     multi_host = par.get("multi_host", {})
     if isinstance(multi_host, dict):
@@ -86,6 +87,7 @@ def _prune(save_dir: Path, keep_last: int) -> None:
 def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] = None) -> Trainer:
     """Train as the CLI does, from `config_path` (or an already loaded
     `config` dict); returns the Trainer."""
+    enable_compilation_cache()
     if config is None:
         config = load_config(config_path or "configs/base.yaml")
     _refuse_unported(config)
@@ -136,10 +138,17 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
     log_file = str(log_dir / "train_log.jsonl")
     keep_last = ((config.get("train", {}) or {}).get("checkpoint", {}) or {}).get("keep_last", 0)
     pp = None if compat.ignore_post_processing_config else PostProcessSpec.from_config(config, "val")
+    # debug.profile (dead in the reference, configs/base.yaml:643): trace
+    # the first epoch this run trains
+    profile = (config.get("debug", {}) or {}).get("profile", False)
 
     for epoch in range(start_epoch, train_spec.num_epochs):
         t0 = time.time()
-        avg_loss = trainer.train_one_epoch(train_loader, log_file=log_file)
+        if profile and epoch == start_epoch:
+            with profile_trace(str(log_dir / "profile")):
+                avg_loss = trainer.train_one_epoch(train_loader, log_file=log_file)
+        else:
+            avg_loss = trainer.train_one_epoch(train_loader, log_file=log_file)
         print(f"Epoch {epoch}: loss={avg_loss:.4f} ({time.time() - t0:.1f}s)")
         if (epoch + 1) % train_spec.save_interval == 0 or epoch + 1 == train_spec.num_epochs:
             trainer.save_checkpoint(str(save_dir / f"checkpoint_epoch_{epoch}.msgpack"), epoch)
@@ -158,6 +167,7 @@ def inference(model_path: str, data_root: str = "./data/nuscenes", device=None) 
     """Quick single-sample inference; returns `run_inference`'s result."""
     from .inference_engine import InferenceEngine
 
+    enable_compilation_cache()
     engine = InferenceEngine(model_path=model_path, device=device)
     ds = NuScenesDataset(data_root=data_root, split="val")
     return engine.run_inference(ds[0], visualize=False)

@@ -14,6 +14,8 @@ itself a port of the reference metric stack (ref: utils_v2.py):
   (utils_v2.py:189-199), not the official nuScenes NDS;
 - quirk Q9: per-class rows in the reference's report order
   (`report_class_order="reference"`) or the label order (``"dataset"``);
+- `match_predictions_to_gt` and `calculate_ap` (``:95-115``): the matching
+  and the AP of one class of one sample on their own;
 - `save_and_print_metrics`: the reference's report text;
 - `compute_metrics_official` (``:258-440``): the official-style nuScenes
   protocol that ``metrics.use_official`` turns on in the eval CLI.
@@ -89,6 +91,31 @@ def _ap_from_tp(tp: np.ndarray, num_gt: int) -> float:
     inside = idx < len(recalls)
     vals = np.where(inside, suffix_max[np.minimum(idx, len(recalls) - 1)], 0.0)
     return float(vals.sum() / 11.0)
+
+
+def match_predictions_to_gt(
+    distance_matrix: np.ndarray,
+    pred_scores: np.ndarray,
+    threshold: float = 2.0,
+) -> List[Tuple[int, int]]:
+    """Greedy score-descending matching; each GT used once
+    (ref: utils_v2.py:13-36)."""
+    return _greedy_tp_and_matches(distance_matrix, pred_scores, threshold)[1]
+
+
+def calculate_ap(
+    pred_boxes: np.ndarray,
+    pred_scores: np.ndarray,
+    gt_boxes: np.ndarray,
+    distance_matrix: np.ndarray,
+    threshold: float = 2.0,
+) -> float:
+    """11-point interpolated AP with greedy TP assignment
+    (ref: utils_v2.py:42-88)."""
+    if len(pred_boxes) == 0 or len(gt_boxes) == 0:
+        return 0.0
+    tp, _ = _greedy_tp_and_matches(distance_matrix, pred_scores, threshold)
+    return _ap_from_tp(tp, len(gt_boxes))
 
 
 def compute_metrics(

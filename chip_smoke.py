@@ -158,7 +158,24 @@ Phases (any failure raises and the script exits non-zero):
    Q4 off), augmentation on, num_sweeps and radar_num_sweeps 2 and
    camera_encoder.freeze_bn: one epoch and a resume, restored bit for bit,
    B1 twice per validation batch on the 5-wide chain and never in
-   training, the camera BatchNorm statistics unchanged.
+   training, the camera BatchNorm statistics unchanged;
+15. AOT serving, profiling and the compile cache: (a) phase 4's server
+   (seeded weights A) exported with `utils.aot.export_serving_artifact`
+   (`torch.export`, both wire signatures, B1 as the custom op
+   bmod_torch::pointnet_fused); a server built with `aot_path=` serves
+   phase 4's 19 mixed requests, B1 launch counter zeroed just before and
+   read just after, equal to the live server's at scores 1e-4 and boxes
+   1e-3 (bit equality printed), and a server restored with seeded weights B
+   on the same artifact equals a live server with weights B (and not A's
+   answers); artifact bytes, export and load seconds, steady batch latency
+   beside the live server's; (b) `utils.profiling.profile_trace` around 3
+   served batches and 3 full-width bf16 mixed-precision train steps: from
+   each trace the device idle share (1 - the union of the kernels'
+   intervals over the traced window), the top 5 kernels by time and
+   `device_memory_stats()`; (c) `debug.profile: true` through
+   `train_detect.main` on phase 11's tree for one epoch leaves a trace under
+   log_dir/profile; (d) the serve CLI's --export-aot, then --aot in a
+   subprocess: one request answered, SIGTERM drains, exit 0.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.
@@ -242,9 +259,16 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.train.loop import (
     make_optimizer,
     make_train_step,
 )
+from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.aot import export_serving_artifact
 from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.convert import (
     export_jax_variables,
     opt_state_to_jax,
+)
+from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.profiling import (
+    device_memory_stats,
+    profile_trace,
+    trace_files,
+    trace_summary,
 )
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them, HBM
@@ -389,7 +413,8 @@ def calibrate_point_mlp(mlp, points: np.ndarray, g: torch.Generator) -> None:
 
 
 def chain_args(encoder, points: np.ndarray, dtype, device):
-    weights, biases = encoder.point_mlp.folded()
+    with torch.no_grad():  # as the encoder's fold cache makes them
+        weights, biases = encoder.point_mlp.folded()
     return (
         torch.from_numpy(points).to(device, dtype),
         [w.to(device, dtype).contiguous() for w in weights],
@@ -703,9 +728,11 @@ def serve_main_path(config) -> dict:
     }
 
 
+@torch.inference_mode()  # as the server and the eval step call B1
 def time_kernel(encoder, points: np.ndarray, dtype=torch.bfloat16) -> dict:
     """Phase 5 (bf16) and 13f (f32): the kernel (median, min and max of 3
-    timings of 20 launches each through the wrapper; achieved TFLOP/s and
+    timings of 20 launches each through the wrapper, which calls the custom
+    op; the ctypes launch the op wraps, median of 3; achieved TFLOP/s and
     share of the bound at the median; the device time alone, from a CUDA
     graph), plain version, cuBLAS chain, and the bound."""
     x, w, b = chain_args(encoder, points, dtype, "cuda")
@@ -725,8 +752,9 @@ def time_kernel(encoder, points: np.ndarray, dtype=torch.bfloat16) -> dict:
               + batch * widths[-1] * size)
     bound = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES) * 1e3
     runs = sorted(time_ms(lambda: pf.pointnet_fused(x, w, b)) for _ in range(3))
+    direct = sorted(time_ms(lambda: pf._launch(x, w, b, False)) for _ in range(3))
     return {
-        "ms": runs[1], "ms_min": runs[0], "ms_max": runs[2],
+        "ms": runs[1], "ms_min": runs[0], "ms_max": runs[2], "ctypes_ms": direct[1],
         "tflops": flops / runs[1] / 1e9, "bound_share": bound / runs[1],
         "device_ms": graph_ms(lambda: pf.pointnet_fused(x, w, b)),
         "plain_ms": time_ms(lambda: pf.pointnet_fused_reference(x, w, b)),
@@ -1855,15 +1883,15 @@ def by_position(res: dict) -> dict:
     return {k: v[order] for k, v in res.items()}
 
 
-def serve_cli_drain(tmp: Path, sample: dict, timeout_s: float = 180.0) -> dict:
-    """The serve CLI in a subprocess (seeded weights, batch 2): a request,
-    then SIGTERM with a second one in its 1 s coalescing window; both must
-    be answered and the process must exit 0."""
+def serve_cli_drain(tmp: Path, sample: dict, timeout_s: float = 180.0, extra_args=()) -> dict:
+    """The serve CLI in a subprocess (seeded weights, batch 2, and
+    `extra_args`): a request, then SIGTERM with a second one in its 1 s
+    coalescing window; both must be answered and the process must exit 0."""
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", f"{PORT}.serve", "--config", "configs/base.yaml", "--port", "0",
-         "--batch-size", "2", "--max-delay-ms", "1000"],
+         "--batch-size", "2", "--max-delay-ms", "1000", *extra_args],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(tmp), env=env,
     )
     lines = []
@@ -2728,6 +2756,205 @@ def training_options(config, g: torch.Generator, rng: np.random.RandomState, tmp
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: AOT serving artifacts, profiling and the compile cache
+# ---------------------------------------------------------------------------
+
+
+def served_requests(server, samples) -> tuple:
+    """Phase 4's 19 requests (16, then a partial batch of 3) on a started
+    server, the B1 launch counter zeroed just before and read just after."""
+    pf.pointnet_fused.launches = 0
+    futures = [server.submit(samples[i % 4]) for i in range(16)]
+    results = [f.result(timeout=300) for f in futures]
+    futures = [server.submit(samples[i % 4]) for i in range(3)]
+    results += [f.result(timeout=300) for f in futures]
+    launches = pf.pointnet_fused.launches
+    check_results(results, 19)
+    return results, launches
+
+
+def detections_agree(got: list, want: list, what: str) -> bool:
+    """Each result within the serving tolerances (scores 1e-4, boxes 1e-3,
+    labels equal, matched by position); returns whether all bits agree."""
+    bit_equal = True
+    for i, (g, w) in enumerate(zip(got, want)):
+        bit_equal &= all(np.array_equal(g[k], w[k]) for k in w)
+        g, w = by_position(g), by_position(w)
+        if len(g["scores"]) != len(w["scores"]) or not np.array_equal(g["labels"], w["labels"]) \
+                or np.abs(g["scores"] - w["scores"]).max() > 1e-4 \
+                or np.abs(g["boxes"] - w["boxes"]).max() > 1e-3:
+            raise AssertionError(f"{what}: request {i} differs")
+    return bit_equal
+
+
+def batch_latency_ms(servers: dict, batch, reps: int = 8) -> dict:
+    """Median ms of `_run_batch` on each server, the servers in turns."""
+    times = {k: [] for k in servers}
+    for _ in range(reps):
+        for k, server in servers.items():
+            t = time.perf_counter()
+            server._run_batch(batch)
+            times[k].append((time.perf_counter() - t) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def aot_serving(config, tmp: Path) -> tuple:
+    """15a; returns the measurements and the live server of weights A
+    (stopped, still usable through `_run_batch`) with a uint8 batch."""
+    kw = dict(config=config, batch_size=8, max_delay_ms=20.0, score_threshold=0.0, use_bf16=True, fold_bn=True)
+    out = {}
+    t = time.perf_counter()
+    live = InferenceServer(**kw)
+    out["live_init_s"] = time.perf_counter() - t
+    path = tmp / "serving.aot.npz"
+    t = time.perf_counter()
+    meta = export_serving_artifact(live, path)
+    out["export_s"] = time.perf_counter() - t
+    out["artifact_bytes"] = path.stat().st_size
+    if meta["signatures"] != ["f32", "u8"] or meta["platforms"] != ["cuda"]:
+        raise AssertionError(f"artifact meta {meta}")
+    t = time.perf_counter()
+    aot = InferenceServer(aot_path=str(path), **kw)
+    out["load_s"] = time.perf_counter() - t
+
+    samples = make_samples(live.spec, np.random.RandomState(3), 4)
+    answers = {}
+    for name, server in (("live", live), ("aot", aot)):
+        with server:  # start() warms both wires
+            answers[name], launches = served_requests(server, samples)
+        out[f"{name}_launches"] = launches
+    if out["aot_launches"] <= 0:
+        raise AssertionError("the AOT server never launched the B1 kernel")
+    out["bit_equal"] = detections_agree(answers["aot"], answers["live"], "AOT server vs live server (weights A)")
+    u8_batch = [samples[0]] * 8
+    out["batch_latency_ms"] = batch_latency_ms({"live": live, "aot": aot}, u8_batch)
+
+    # weights B on the same artifact: served as a live server with B serves
+    model_b = MultiModal3DDetector(live.spec).init_weights(torch.Generator().manual_seed(15))
+    variables_b = export_jax_variables(randomize_stats(model_b, torch.Generator().manual_seed(16)))
+    del model_b
+    live_b = InferenceServer(variables=variables_b, **kw)
+    aot_b = InferenceServer(variables=variables_b, aot_path=str(path), **kw)
+    mixed = samples[:3]  # uint8, float and uint8 rows: the host normalizes the uint8 ones
+    for batch, label in ((u8_batch, "uint8"), (mixed, "mixed")):
+        want_b, got_b = live_b._run_batch(batch), aot_b._run_batch(batch)
+        out[f"weights_b_bit_equal_{label}"] = detections_agree(got_b, want_b, f"AOT vs live server (weights B, {label})")
+        want_a = live._run_batch(batch)
+        if all(np.array_equal(g["scores"], w["scores"]) for g, w in zip(got_b, want_a)):
+            raise AssertionError("the artifact served weights A's answers on a server restored with weights B")
+    del live_b, aot_b, aot
+    torch.cuda.empty_cache()
+    log(f"  AOT artifact: {out['artifact_bytes']} bytes (no weights), export {out['export_s']:.2f} s, load "
+        f"{out['load_s']:.2f} s (live server init {out['live_init_s']:.2f} s); 19 requests: B1 launches "
+        f"{out['aot_launches']} (live {out['live_launches']}), bit-equal {out['bit_equal']}; weights B bit-equal "
+        f"{out['weights_b_bit_equal_uint8']} (uint8) {out['weights_b_bit_equal_mixed']} (mixed); batch latency "
+        f"uint8 AOT {out['batch_latency_ms']['aot']:.2f} ms, live {out['batch_latency_ms']['live']:.2f} ms "
+        f"(median of 8, in turns) [{card()}]")
+    return out, live, u8_batch
+
+
+def traced(logdir: Path, fn, reps: int = 3) -> dict:
+    """`fn` run `reps` times inside `profile_trace(logdir)`, then a
+    synchronize; the trace's summary and `device_memory_stats()`."""
+    with profile_trace(str(logdir)):
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    files = trace_files(logdir)
+    if not files:
+        raise AssertionError(f"profile_trace wrote no trace under {logdir}")
+    summary = trace_summary(files[-1])
+    if summary["kernels"] <= 0:
+        raise AssertionError(f"the trace under {logdir} holds no device kernel")
+    return dict(summary, trace_bytes=files[-1].stat().st_size, memory=device_memory_stats())
+
+
+def profiling(config, server, batch, tmp: Path) -> dict:
+    """15b: 3 served batches (the server of 15a) and 3 full-width bf16
+    mixed-precision train steps (phase 10's) under the profiler."""
+    out = {"serve_3_batches": traced(tmp / "profile_serve", lambda: server._run_batch(batch))}
+    spec, compat = DetectorSpec.from_config(config), CompatFlags.from_config(config)
+    ts = dataclasses.replace(TrainSpec.from_config(config), mixed_precision=True)
+    train = train_batch(spec, np.random.RandomState(9), ts.batch_size, ts.max_objects, 40)
+    model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding).init_weights(
+        torch.Generator().manual_seed(10))
+    step = make_train_step(model, make_optimizer(ts, compat), ts, compat)
+    for _ in range(2):  # warm up as phase 10 does
+        step(train)
+    torch.cuda.synchronize()
+    out["train_3_steps_bf16"] = traced(tmp / "profile_train", lambda: step(train))
+    del model, step
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        log(f"  {name}: device idle share {r['idle_share']:.4f} of a {r['window_ms']:.2f} ms window "
+            f"({r['busy_ms']:.2f} ms under kernels, {r['kernels']} kernels); top 5: "
+            + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in r["top"]) + f" [{card()}]")
+    log(f"  device_memory_stats: {json.dumps(device_memory_stats())}")
+    return out
+
+
+def profiled_training(tree_config: dict, tmp: Path) -> dict:
+    """15c: `debug.profile: true` through `train_detect.main` on phase 11's
+    tree, one epoch."""
+    cfg = copy.deepcopy(tree_config)
+    cfg.setdefault("debug", {})["profile"] = True
+    cfg["train"]["num_epochs"] = 1
+    cfg["train"]["resume"]["enable"] = False
+    cfg["train"]["checkpoint"]["save_dir"] = str(tmp / "profile_checkpoints")
+    cfg["train"]["logging"]["log_dir"] = str(tmp / "profile_logs")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t = time.perf_counter()
+        train_detect.main(config=cfg, device="cuda")
+        seconds = time.perf_counter() - t
+    finally:
+        os.chdir(cwd)
+    files = trace_files(tmp / "profile_logs" / "profile")
+    if len(files) != 1:
+        raise AssertionError(f"debug.profile left {len(files)} traces under log_dir/profile")
+    summary = trace_summary(files[0])
+    log(f"  debug.profile: train_detect.main one epoch in {seconds:.1f} s, trace {files[0].name} "
+        f"({files[0].stat().st_size} bytes): device idle share {summary['idle_share']:.4f} of the epoch's "
+        f"{summary['window_ms']:.1f} ms [{card()}]")
+    return {"seconds": seconds, "trace_bytes": files[0].stat().st_size,
+            **{k: summary[k] for k in ("window_ms", "busy_ms", "idle_share", "kernels")}}
+
+
+def aot_cli(tmp: Path, sample: dict) -> dict:
+    """15d: the serve CLI exports an artifact (batch 2), then serves from it
+    in a subprocess and drains."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    path = tmp / "cli.aot.npz"
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PORT}.serve", "--config", "configs/base.yaml", "--batch-size", "2",
+         "--export-aot", str(path)],
+        capture_output=True, text=True, cwd=str(tmp), env=env, timeout=300,
+    )
+    export_s = time.perf_counter() - t
+    if proc.returncode != 0 or "AOT artifact written to" not in proc.stdout or not path.exists():
+        raise AssertionError(f"serve --export-aot failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    drain = serve_cli_drain(tmp, sample, extra_args=("--aot", str(path)))
+    log(f"  serve CLI: --export-aot in {export_s:.1f} s; --aot listening after {drain['start_s']:.1f} s, "
+        f"SIGTERM with a request in flight: both answered, exit {drain['exit_code']}")
+    return {"export_s": export_s, "drain": drain}
+
+
+def aot_profiling_cache(config, tree_config: dict, tmp: Path) -> dict:
+    """Phase 15."""
+    out = {}
+    torch.backends.cudnn.allow_tf32 = True  # serving and mixed precision, as phases 4 and 10
+    out["aot"], server, batch = aot_serving(config, tmp)
+    out["profiling"] = profiling(config, server, batch, tmp)
+    del server
+    torch.cuda.empty_cache()
+    out["debug_profile"] = profiled_training(tree_config, tmp)
+    out["cli"] = aot_cli(tmp, make_samples(DetectorSpec.from_config(config), np.random.RandomState(4), 1)[0])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2768,7 +2995,8 @@ def main() -> int:
                                                           spec.radar.max_points_per_sensor))
     log("  " + json.dumps({"lidar_8x35000": lidar_t, "radar_40x125": radar_t}))
     for what, t in (("LiDAR 8x35000x4", lidar_t), ("radar 40x125x7", radar_t)):
-        log(f"  B1 {what} bf16: {t['ms']:.4f} ms median of 3 ({t['ms_min']:.4f}-{t['ms_max']:.4f}), "
+        log(f"  B1 {what} bf16 through the custom op: {t['ms']:.4f} ms median of 3 ({t['ms_min']:.4f}-"
+            f"{t['ms_max']:.4f}; the ctypes launch it wraps {t['ctypes_ms']:.4f}), "
             f"{t['tflops']:.1f} TFLOP/s, {100 * t['bound_share']:.1f}% of the bound "
             f"({t['bound_ms']:.4f} ms); device alone {t['device_ms']:.4f} ms; "
             f"cuBLAS chain {t['library_ms']:.4f} ms")
@@ -2831,6 +3059,12 @@ def main() -> int:
         log(f"  phase 14 took {time.perf_counter() - t:.1f} s")
         log("  " + json.dumps({"training_options": opts}))
 
+        log("phase 15: AOT serving artifacts (torch.export, B1 as a custom op), profiling and the compile cache")
+        t = time.perf_counter()
+        aot = aot_profiling_cache(config, tree_config, Path(tmp))
+        log(f"  phase 15 took {time.perf_counter() - t:.1f} s")
+        log("  " + json.dumps({"aot_profiling": aot}))
+
     def entry(name, launches, err, t):
         source, replaces = KERNELS[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2838,10 +3072,12 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "shape": t["shape"]}
 
-    lidar_t["shape"] = "lidar 8x35000x4 bf16"
+    lidar_t["shape"] = "lidar 8x35000x4 bf16, through the custom op"
     kernels = [
         dict(entry("pointnet_fused", serve["launches"], max_err, lidar_t),
              device_ms=lidar_t["device_ms"], radar_device_ms=radar_t["device_ms"],
+             ctypes_ms=lidar_t["ctypes_ms"], radar_ctypes_ms=radar_t["ctypes_ms"],
+             aot_launches=aot["aot"]["aot_launches"],
              radar_ms=radar_t["ms"], radar_plain_ms=radar_t["plain_ms"],
              radar_bound_ms=radar_t["bound_ms"], radar_library_ms=radar_t["library_ms"],
              geometric_launches=geo["launches"]["pointnet_fused"],

@@ -41,6 +41,12 @@ ENTRY_POINT_MODULES = (
 VARIANT_MODULES = (
     "ablation", "models.detector", "models.encoders", "models.fusion", "models.heads", "ops.losses",
 )
+# the AOT serving, profiling and build-cache modules, the offline data tools
+# and their CLI mirrors
+TOOL_MODULES = (
+    "utils.aot", "utils.profiling", "utils.cache", "data.validate", "data_converter", "data_validate",
+    "validate_data_with_samples", "ops.preprocess", "ops.targets",
+)
 
 
 def test_port_imports_without_jax():
@@ -50,8 +56,10 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.splitlines()[-1].split())
-    assert len(imported) >= 44  # every module was imported
-    assert {f"{PORT}.{m}" for m in TRAINING_MODULES + ENTRY_POINT_MODULES + VARIANT_MODULES} <= imported
+    assert len(imported) >= 51  # every module was imported
+    assert {
+        f"{PORT}.{m}" for m in TRAINING_MODULES + ENTRY_POINT_MODULES + VARIANT_MODULES + TOOL_MODULES
+    } <= imported
 
 
 @pytest.mark.parametrize("config", ["base.yaml", "bev100.yaml", "base.yaml:geometric", "base.yaml:train"])

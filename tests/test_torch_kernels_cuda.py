@@ -1,5 +1,7 @@
 """The port's hand-written kernels on a card, against their plain PyTorch
-versions: B1 (fused PointNet) and the BEV pools B2 and B3.
+versions: B1 (fused PointNet) and the BEV pools B2 and B3; B1's custom op
+against the ctypes launch it wraps (bit for bit: one kernel), and a serving
+artifact exported on the card.
 
 This file imports neither jax, flax nor the JAX package, so that on a machine
 with a card
@@ -12,11 +14,15 @@ plain versions are the oracles: f32 sums in another order, tolerance 1e-5
 holds them, since long sums of random terms cancel).
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
+from bevfusion_multimodal_3d_object_detection_tpu_torch.config import load_config
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import bev_pool
+from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import pointnet_fused as pf
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.pointnet_fused import (
     kernel_tile_points,
     pointnet_fused,
@@ -101,6 +107,57 @@ def test_f32_kernel_tile_edges_on_card(cuda_device, mask_padding, widths, edge):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     if mask_padding:
         assert torch.all(got[-1] == 0)  # all-masked row -> 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,widths", [((40, 125), (7, 32, 64, 128, 256)), ((2, 3001), (4, 64, 128, 256, 512))],
+                         ids=["radar", "ragged-lidar"])
+def test_custom_op_matches_ctypes_path_on_card(cuda_device, dtype, shape, widths):
+    """`pointnet_fused` (the custom op bmod_torch::pointnet_fused) against
+    the ctypes launch it wraps: the same kernel, so the same bits; each
+    counts one launch."""
+    rng = np.random.RandomState(5)
+    ws, bs = _chain(rng, widths)
+    x = torch.from_numpy(_points(rng, *shape, widths[0])).to(cuda_device, dtype)
+    wt = [torch.from_numpy(w).to(cuda_device, dtype) for w in ws]
+    bt = [torch.from_numpy(b).to(cuda_device) for b in bs]
+    for mask in (False, True):
+        before = pointnet_fused.launches
+        got = pointnet_fused(x, wt, bt, mask)
+        want = pf._launch(x, wt, bt, mask)
+        torch.cuda.synchronize()
+        assert pointnet_fused.launches == before + 2
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_aot_artifact_exported_on_card_serves(cuda_device, tmp_path):
+    """A narrow model's artifact exported on the card (bf16, folded BN)
+    serves with B1 launches > 0 and the live server's detections (scores
+    1e-4, boxes 1e-3: the serving tolerances)."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import InferenceServer
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.aot import export_serving_artifact
+    from chip_smoke import detections_agree, make_samples
+
+    cfg = load_config(str(pathlib.Path(__file__).resolve().parents[1] / "configs" / "base.yaml"))
+    m = cfg["model"]
+    m["camera_encoder"]["input_size"] = [32, 64]
+    cfg["dataset"]["max_points"] = {"lidar": 256, "radar_per_sensor": 16}
+    m["lidar_encoder"]["mlp_layers"] = [16, 32, 64]
+    m["radar_encoder"].update(mlp_layers=[8, 16, 32], feature_dim=32)
+    m["bev_fusion"].update(bev_h=16, bev_w=16, bev_channels=32)
+    m["centernet_head"].update(in_channels=32, head_conv=16)
+    kw = dict(config=cfg, batch_size=2, score_threshold=0.0, use_bf16=True, fold_bn=True, device="cuda")
+    live = InferenceServer(**kw)
+    path = tmp_path / "serving.aot.npz"
+    assert export_serving_artifact(live, path)["platforms"] == ["cuda"]
+    aot = InferenceServer(**kw, aot_path=str(path))
+    samples = make_samples(live.spec, np.random.RandomState(3), 2)
+    pointnet_fused.launches = 0
+    got = aot._run_batch(samples)
+    assert pointnet_fused.launches > 0
+    detections_agree(got, live._run_batch(samples), "AOT vs live server on the card")
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,9 @@
 """The port's metrics against the JAX package's: the same predictions give
 an identical metrics dict and an identical report file, in both class
-orders (quirk Q9), and the official-style metrics agree at 1e-12."""
+orders (quirk Q9), the official-style metrics agree at 1e-12, and
+`match_predictions_to_gt` and `calculate_ap` give identical matches and APs
+(exact: the same numpy arithmetic) on seeded distance matrices, empty ones
+included."""
 
 import numpy as np
 import pytest
@@ -79,3 +82,27 @@ def test_official_metrics_match_jax(dist_ths, tp_threshold, velocities):
         else:
             assert abs(got[k] - v) <= 1e-12, k
     assert 0 < got["mAP"] < 1 and got["mATE"] < 1.0 and (got["mAVE"] != 1.0) == velocities
+
+
+def _distances(seed, n, m):
+    """(n, m) distances, a few under the 2 m threshold, with ties in score."""
+    rng = np.random.RandomState(seed)
+    d = rng.uniform(0.0, 6.0, (n, m))
+    scores = np.round(rng.uniform(0, 1, n), 1)  # ties: argsort's order decides
+    return d, scores
+
+
+@pytest.mark.parametrize("n,m", [(12, 5), (5, 12), (0, 4), (4, 0), (0, 0), (30, 30)])
+@pytest.mark.parametrize("threshold", [2.0, 0.5])
+def test_match_and_ap_match_jax(n, m, threshold):
+    d, scores = _distances(n * 31 + m, n, m)
+    pred_boxes, gt_boxes = np.zeros((n, 7)), np.zeros((m, 7))
+    from bevfusion_multimodal_3d_object_detection_tpu_torch import utils as port_utils
+
+    got = port_utils.match_predictions_to_gt(d, scores, threshold)
+    assert got == jax_metrics.match_predictions_to_gt(d, scores, threshold)
+    assert len({gi for _, gi in got}) == len(got)  # each GT used once
+    ap = port_utils.calculate_ap(pred_boxes, scores, gt_boxes, d, threshold)
+    assert ap == jax_metrics.calculate_ap(pred_boxes, scores, gt_boxes, d, threshold)
+    if n == 0 or m == 0:
+        assert got == [] and ap == 0.0

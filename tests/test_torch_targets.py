@@ -6,7 +6,8 @@ before the snap), one just inside the outer border and one on it (in f32
 its pixel lands just below the border, and JAX keeps it), padded
 rows at the origin, out-of-range labels, 7- and 9-column boxes, and both
 gaussian-radius forms (Q19). Integer outputs are equal and float outputs
-within 1e-6. Losses: the focal loss with and without the Q2 double sigmoid,
+within 1e-6, also through `prepare_centernet_targets_host` with M below, at
+and above `max_objects` (padded with label -1, or cut). Losses: the focal loss with and without the Q2 double sigmoid,
 a regression loss with an all-zero mask, and the whole CenterNet loss dict,
 within 1e-6 relative.
 """
@@ -73,6 +74,25 @@ def test_targets_match_jax(n_cols, corrected, bev):
         assert (got["heatmap"][:, 25, 25, 0] == 1.0).all()
     if n_cols == 7:
         assert not got["target_vel"].any() and not got["vel"].any()
+
+
+@pytest.mark.parametrize("max_objects", [16, 12, 8])
+def test_host_targets_match_jax(max_objects):
+    boxes, labels = _boxes(7, seed=3)  # M = 12
+    kw = dict(pc_range=PC_RANGE, bev_size=(16, 24), num_classes=10, max_objects=max_objects)
+    batch = {"gt_boxes": boxes.astype(np.float64), "gt_labels": labels.tolist()}
+    want = jax_targets.prepare_centernet_targets_host(batch, **kw)
+    got = port_targets.prepare_centernet_targets_host(batch, **kw)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        w, g = np.asarray(w), got[k].numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        if k in INT_KEYS:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+        else:
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-6, err_msg=k)
+    assert got["ind"].shape == (2, max_objects)
+    assert int(got["reg_mask"].sum()) == int((labels[:, :max_objects] >= 0).sum()) - (max_objects > 10)
 
 
 def test_gaussian_radius_forms_differ_for_large_boxes():

@@ -91,7 +91,7 @@ def test_train_cli_writes_the_jax_artifacts_and_resumes(nuscenes_tree, tmp_path,
 
 
 def test_cli_refuses_unported_options(nuscenes_tree, tmp_path):
-    for section, key, value, item in (("debug", "profile", True, "A12"), ("parallel", "data_parallel", 2, "A13"),
+    for section, key, value, item in (("parallel", "data_parallel", 2, "A13"),
                                       ("parallel", "multi_host", {"enable": True}, "A13")):
         cfg = tree_config(tmp_path, nuscenes_tree)
         cfg.setdefault(section, {})[key] = value
