@@ -4,13 +4,14 @@ The port's own copy of the JAX package's config parsing
 (``bevfusion_multimodal_3d_object_detection_tpu/config.py:74-510`` and
 ``:582-738``): the same YAML schema, the same ``compat:`` defaults and the same
 frozen dataclasses, so one ``configs/*.yaml`` drives both packages: the model
-specs, `TrainSpec`, `DataSpec` and `AugmentSpec`. `ParallelSpec` comes with
-the slice that reads it (parallelism, ROADMAP A13).
+specs, `TrainSpec`, `DataSpec`, `AugmentSpec` and `ParallelSpec` (whose
+multi-host coordinator may also come from torchrun's ``MASTER_ADDR``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -699,4 +700,62 @@ class AugmentSpec:
             scale_max=scale[1],
             lidar_flip=lid.get("random_flip", True),
             noise_std=rad.get("noise_std", 0.01),
+        )
+
+
+@dataclass(frozen=True)
+class ParallelSpec:
+    """The ``parallel`` block (``config.py:739-818`` of the JAX package),
+    parsed as the JAX package parses it.
+
+    In the port (`parallel/`): ``data_parallel`` is the number of processes,
+    one GPU each, of a single torchrun node; ``multi_host`` spans every
+    process of every node, a torchrun node playing the part of a JAX
+    process; ``shard_optimizer`` is ZeRO-1 over them. ``view_parallel`` > 1
+    and ``bev_spatial`` are not ported (ROADMAP A13b). The reference's dead
+    ``hardware.gpu.distributed`` block turns ``multi_host`` on only when it
+    is not configured and a coordinator is resolvable: ``coordinator_address``
+    or torchrun's ``MASTER_ADDR`` (the JAX package reads
+    ``JAX_COORDINATOR_ADDRESS``)."""
+
+    data_parallel: int = 1
+    view_parallel: int = 1
+    shard_optimizer: bool = False
+    bev_spatial: bool = False
+    multi_host: bool = False
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+
+    @staticmethod
+    def from_config(cfg: Optional[Dict]) -> "ParallelSpec":
+        p = _get(cfg, "parallel", default={}) or {}
+        # `or {}` must not eat the `multi_host: false` shorthand: an explicit
+        # disable beats the dead reference block below
+        mh = p.get("multi_host", {})
+        if isinstance(mh, bool):
+            mh = {"enable": mh}
+        mh = mh or {}
+        ref_dist = _get(cfg, "hardware", "gpu", "distributed", default={}) or {}
+        if "enable" in mh:
+            enable = bool(mh["enable"])
+        elif ref_dist.get("enable", False):
+            enable = bool(mh.get("coordinator_address") or os.environ.get("MASTER_ADDR"))
+            if not enable:
+                print(
+                    "Warning: hardware.gpu.distributed.enable=true but no coordinator is configured "
+                    "(parallel.multi_host.coordinator_address or MASTER_ADDR); staying single-process "
+                    "(the reference never reads this block either)."
+                )
+        else:
+            enable = False
+        return ParallelSpec(
+            data_parallel=p.get("data_parallel", 1),
+            view_parallel=p.get("view_parallel", 1),
+            shard_optimizer=bool(p.get("shard_optimizer", False)),
+            bev_spatial=bool(p.get("bev_spatial", False)),
+            multi_host=enable,
+            coordinator_address=mh.get("coordinator_address"),
+            num_processes=mh.get("num_processes", ref_dist.get("world_size") if enable else None),
+            process_id=mh.get("process_id", ref_dist.get("rank") if enable else None),
         )

@@ -24,9 +24,8 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/data/dataset.py``
 - `collate_fn` (``:632-665``): GT padded to ``max_objects`` (boxes, label -1,
   velocities);
 - `DataLoader` (``:668-776``): seeded shuffle, ``drop_last``, a prefetch
-  thread that re-raises loader errors, and ``num_workers`` loader threads.
-
-Not ported: multi-process sharding (ROADMAP A13); it raises.
+  thread that re-raises loader errors, ``num_workers`` loader threads, and
+  the per-process (data-parallel: per-node) strided share of the epoch.
 """
 
 from __future__ import annotations
@@ -554,8 +553,12 @@ class DataLoader:
     ``drop_last``, ``num_workers`` threads for the per-sample loads (PIL
     decode and file reads release the GIL) and a prefetch thread that keeps
     up to `prefetch` collated batches ahead; an error in it is raised in the
-    consumer. Multi-process sharding (`process_count` > 1) is not ported yet
-    (ROADMAP A13)."""
+    consumer. With `process_count` > 1 (data parallelism: the torchrun node
+    index and node count) every process draws the same epoch permutation and
+    takes its strided slice, truncated to the same length on every process
+    (``data/dataset.py:686-745`` of the JAX package): the epoch is covered
+    once, up to ``process_count - 1`` samples, and every process runs the
+    same number of batches."""
 
     def __init__(
         self,
@@ -570,10 +573,6 @@ class DataLoader:
         process_index: int = 0,
         process_count: int = 1,
     ):
-        if process_index != 0 or process_count != 1:
-            raise NotImplementedError(
-                "multi-process data sharding (process_count > 1) is not ported yet (ROADMAP A13)"
-            )
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -582,6 +581,8 @@ class DataLoader:
         self.prefetch = prefetch
         self.rng = np.random.RandomState(seed)
         self.num_workers = num_workers
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
 
     def _fetch(self, indices) -> List[Dict[str, np.ndarray]]:
         if self.num_workers and self.num_workers > 1:
@@ -591,8 +592,13 @@ class DataLoader:
                 return list(pool.map(self.dataset.__getitem__, (int(i) for i in indices)))
         return [self.dataset[int(i)] for i in indices]
 
+    def _local_count(self) -> int:
+        # unequal counts would leave a process waiting in a collective at
+        # the epoch's end
+        return len(self.dataset) // self.process_count
+
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = self._local_count()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -601,6 +607,8 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             self.rng.shuffle(idx)
+        if self.process_count > 1:
+            idx = idx[self.process_index::self.process_count][: self._local_count()]
         batches = [idx[i: i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()

@@ -65,6 +65,12 @@ class AugmentDraws(NamedTuple):
     scale: torch.Tensor  # (B,)
     radar_noise: Optional[torch.Tensor]  # standard normal, the radar's shape
 
+    def rows(self, block: slice) -> "AugmentDraws":
+        """The draws of the samples in `block`: a data-parallel rank draws
+        for the global batch, as the JAX step does, and takes its rows."""
+        noise = None if self.radar_noise is None else self.radar_noise[block]
+        return AugmentDraws(self.jitter[:, block], self.flip[block], self.scale[block], noise)
+
 
 def draw_augmentation(generator: torch.Generator, aug, batch: int,
                       radar_shape: Optional[Sequence[int]] = None) -> AugmentDraws:

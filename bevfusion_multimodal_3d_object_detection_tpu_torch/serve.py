@@ -1,11 +1,11 @@
 """HTTP serving CLI of the port: the surface of the root ``serve.py``
-(``:27-175``), on one GPU unless ``--device cpu``:
+(``:27-175``), on one GPU (``--data-parallel N``: N) unless ``--device cpu``:
 
   python -m bevfusion_multimodal_3d_object_detection_tpu_torch.serve
       --model checkpoints/best_model.msgpack [--config configs/base.yaml]
       [--host 127.0.0.1] [--port 8080] [--batch-size 8] [--max-delay-ms 5]
       [--score-threshold 0.3] [--f32] [--no-fold-bn] [--device cuda|cpu]
-      [--aot PATH | --export-aot PATH]
+      [--data-parallel N] [--aot PATH | --export-aot PATH]
 
 `serving.InferenceServer` (request coalescing into fixed-size batches,
 bf16 and folded camera BatchNorms by default) behind
@@ -21,7 +21,10 @@ serves from one, with the weights of ``--model`` (or the seeded ones). The
 two exclude each other, as in the JAX CLI. An artifact serves on the device
 type it was exported on.
 
-Not ported: ``--data-parallel`` above 1 (ROADMAP A13), which raises.
+``--data-parallel N`` serves N replicas, one on each of ``cuda:0`` ..
+``cuda:N-1`` (``InferenceServer(devices=...)``), each coalesced batch split
+among them; more than ``torch.cuda.device_count()`` exits with the JAX
+CLI's message. On the CPU it serves N replicas in the one process.
 ``--pallas`` is accepted and changes nothing: the port's eval path always
 runs the fused PointNet kernel.
 """
@@ -55,7 +58,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--drain-timeout", type=float, default=30.0,
                     help="max seconds to wait for in-flight requests on SIGTERM/SIGINT before forcing exit")
     ap.add_argument("--data-parallel", type=int, default=1,
-                    help="multi-GPU serving: not ported yet (ROADMAP A13)")
+                    help="serve N replicas on cuda:0..N-1, each batch split among them (batch size must divide by N)")
     ap.add_argument("--aot", default=None, metavar="PATH",
                     help="serve from an AOT artifact (utils/aot.py) instead of the live model code; "
                     "checks its shapes at startup")
@@ -73,8 +76,19 @@ def main(argv: Optional[List[str]] = None) -> None:
             "--export-aot requires an unpartitioned server: drop --data-parallel for the export "
             "(artifacts are traced on one device; --data-parallel applies to live serving only)"
         )
+    devices = None
     if args.data_parallel > 1:
-        raise NotImplementedError("--data-parallel > 1 (multi-GPU serving) is not ported yet (ROADMAP A13)")
+        import torch
+
+        if args.device == "cuda":
+            n_dev = torch.cuda.device_count()
+            if args.data_parallel > n_dev:
+                raise SystemExit(
+                    f"--data-parallel {args.data_parallel} needs that many devices, but only {n_dev} available"
+                )
+            devices = [f"cuda:{i}" for i in range(args.data_parallel)]
+        else:
+            devices = [args.device] * args.data_parallel
 
     from .serving import InferenceServer, make_http_server
     from .utils.cache import enable_compilation_cache
@@ -89,7 +103,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         score_threshold=args.score_threshold,
         use_bf16=not args.f32,
         fold_bn=not args.no_fold_bn,
-        device=args.device,
+        device=None if devices else args.device,
+        devices=devices,
         aot_path=args.aot,
     )
     if args.export_aot:
@@ -100,7 +115,8 @@ def main(argv: Optional[List[str]] = None) -> None:
               f"signatures={meta['signatures']}, platforms={meta['platforms']})", flush=True)
         return
     source = f"AOT artifact {args.aot}" if args.aot else "the serving model"
-    print(f"Warming up {source} (batch={args.batch_size}, {server.device}) ...", flush=True)
+    where = ", ".join(str(d) for d in server.devices)
+    print(f"Warming up {source} (batch={args.batch_size}, {where}) ...", flush=True)
     with server:  # start() warms up before the socket opens
         httpd = make_http_server(server, args.host, args.port,
                                  max_request_bytes=int(args.max_request_mb * 1024 * 1024))

@@ -1,7 +1,6 @@
-"""Batched inference server on one GPU, and its HTTP front end.
+"""Batched inference server on one GPU or several, and its HTTP front end.
 
-Port of ``bevfusion_multimodal_3d_object_detection_tpu/serving.py:41-648``
-(without the mesh option, ROADMAP A13):
+Port of ``bevfusion_multimodal_3d_object_detection_tpu/serving.py:41-648``:
 
 - one forward + decode function over a fixed `batch_size`; partial batches
   are padded and the padding rows dropped on the way out;
@@ -18,6 +17,11 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/serving.py:41-648``
 - `aot_path=`: serve from an artifact of `utils.aot.export_serving_artifact`
   (one `torch.export` program per wire signature) with this server's own
   weights, in place of the live model code;
+- `devices=[...]` (the JAX server's mesh, ``:54-125, 400-460``): one
+  replica of the model per entry, its weights placed once, each on its own
+  CUDA stream; a coalesced batch is cut into equal contiguous parts, the
+  parts launched back to back, one a replica, and their results gathered in
+  order. A device may repeat (two replicas on one card);
 - `make_http_server`: a stdlib ThreadingHTTPServer around a server
   (``/healthz``, ``/stats``, ``POST /infer`` in npz or JSON).
 
@@ -30,6 +34,8 @@ pretrained camera trunk where one is configured and present).
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import io
 import json
 import queue
@@ -37,7 +43,7 @@ import threading
 import time
 import zipfile
 from concurrent.futures import Future
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,8 +77,17 @@ class InferenceServer:
         device=None,
         model_path: Optional[str] = None,
         aot_path: Optional[str] = None,
+        devices: Optional[Sequence] = None,
     ):
-        self.device = resolve_device(device)
+        if devices is not None and device is not None:
+            raise ValueError("pass device or devices, not both")
+        self.devices = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
+        self.device = self.devices[0]
+        n = len(self.devices)
+        if batch_size % n:
+            raise ValueError(f"batch_size {batch_size} must divide by the mesh's data axis ({n}) for sharded serving")
+        if aot_path is not None and n > 1:
+            raise ValueError("aot_path and mesh are mutually exclusive: the AOT artifact was traced unpartitioned")
         self.config = config if config is not None else load_config(config_path)
         self.spec = DetectorSpec.from_config(self.config)
         if not self.spec.head_is_centernet:
@@ -106,6 +121,14 @@ class InferenceServer:
             variables = fold_camera_variables(variables)
         load_jax_variables(model, variables)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
+        # (model, device, stream) of each replica; the first is `self.model`
+        self.replicas = [(self.model, self.device, None)]
+        if n > 1:
+            self.replicas = [
+                (self.model if i == 0 else copy.deepcopy(self.model).to(dev), dev,
+                 torch.cuda.Stream(dev) if dev.type == "cuda" else None)
+                for i, dev in enumerate(self.devices)
+            ]
 
         if self.compat.eval_decode_voxel_0512:
             self.voxel_size = 0.512  # Q3
@@ -260,12 +283,13 @@ class InferenceServer:
         with torch.inference_mode():
             return self._serve_body(cams, lidar, radars)
 
-    def _serve_body(self, cams: torch.Tensor, lidar: torch.Tensor, radars: torch.Tensor):
-        """Forward + decode of one staged batch; `utils.aot` exports it."""
+    def _serve_body(self, cams: torch.Tensor, lidar: torch.Tensor, radars: torch.Tensor, model=None):
+        """Forward + decode of one staged batch on `model` (the first
+        replica by default); `utils.aot` exports it."""
         s = self.spec
         if cams.dtype == torch.uint8:
             cams = normalize_images(cams, size=s.camera.image_size)
-        preds = self.model(
+        preds = (self.model if model is None else model)(
             cams.to(self.dtype) if s.use_camera else None,
             lidar if s.use_lidar else None,
             radars if s.use_radar else None,
@@ -281,6 +305,11 @@ class InferenceServer:
     def _stage(self, samples: List[Dict]):
         """Samples (at most batch_size) -> the (cams, lidar, radars) device
         tensors of one padded batch, as `_serve` takes them."""
+        return self._to_device(self._host_batch(samples), self.device)
+
+    def _host_batch(self, samples: List[Dict]) -> List[torch.Tensor]:
+        """The (cams, lidar, radars) host tensors of one padded batch, in
+        the samples' dtypes."""
         n = len(samples)
         if len({np.asarray(s["camera_imgs"]).dtype for s in samples}) > 1:
             # np.stack would promote uint8 rows to float without normalizing
@@ -296,23 +325,42 @@ class InferenceServer:
             ]
         pad_sample = {k: np.zeros_like(v) for k, v in samples[0].items()}
         padded = samples + [pad_sample] * (self.batch_size - n)
+        return [torch.from_numpy(np.ascontiguousarray(np.stack([s[key] for s in padded])))
+                for key in ("camera_imgs", "lidar_points", "radar_points")]
 
-        def stage(key):
-            host = torch.from_numpy(np.ascontiguousarray(np.stack([s[key] for s in padded])))
-            return host.to(self.device)
-
-        cams = stage("camera_imgs")
+    def _to_device(self, host: List[torch.Tensor], device: torch.device, rows: slice = slice(None)):
+        """`rows` of a host batch on `device`, float inputs in the serving
+        dtype (the uint8 wire stays uint8, normalized on the device)."""
+        cams, lidar, radars = (t[rows].to(device, non_blocking=True) for t in host)
         if cams.dtype != torch.uint8:
             cams = cams.to(self.dtype)
-        return cams, stage("lidar_points").to(self.dtype), stage("radar_points").to(self.dtype)
+        return cams, lidar.to(self.dtype), radars.to(self.dtype)
 
     def _launch(self, samples: List[Dict]):
-        """Stage and enqueue one batch; returns (host outputs, event) without
-        waiting for the device."""
-        out = self._serve(*self._stage(samples))
+        """Stage and enqueue one batch; returns a (host outputs, event) per
+        replica without waiting for the device."""
+        if len(self.replicas) == 1:
+            return [self._enqueue_outputs(self._serve(*self._stage(samples)), self.device)]
+        host = self._host_batch(samples)
+        if self.device.type == "cuda":  # the parts' copies then run asynchronously
+            host = [t.pin_memory() for t in host]
+        rows = self.batch_size // len(self.replicas)
+        launched = []
+        for i, (model, device, stream) in enumerate(self.replicas):
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                args = self._to_device(host, device, slice(i * rows, (i + 1) * rows))
+                with torch.inference_mode():
+                    out = self._serve_body(*args, model=model)
+                launched.append(self._enqueue_outputs(out, device))
+        return launched
+
+    @staticmethod
+    def _enqueue_outputs(out: Dict[str, torch.Tensor], device: torch.device):
+        """The outputs' copies to the host, enqueued on the current stream,
+        and an event after them (None on the CPU)."""
         host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
         event = None
-        if self.device.type == "cuda":
+        if device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
         return host, event
@@ -335,9 +383,10 @@ class InferenceServer:
         self.stats["total_latency_s"] += sum(now - t for t in t_enqs)
 
     def _fetch(self, launched, n: int) -> List[Dict]:
-        host, event = launched
-        if event is not None:
-            event.synchronize()
+        for _, event in launched:
+            if event is not None:
+                event.synchronize()
+        host = {k: torch.cat([part[k] for part, _ in launched]) for k in launched[0][0]}
         # boxes ship as (K, 9) = [x y z w l h yaw vx vy]
         boxes = np.concatenate(
             [host["boxes"].float().numpy(), host["velocities"].float().numpy()], axis=-1

@@ -28,6 +28,19 @@ chunk plans and takes the matmul splat, while the culled splat trains on its
 pair plans. The train step launches no hand-written kernel: the point
 encoders run their plain chain, as in the JAX package, whose Pallas kernels
 have no backward.
+
+Data parallelism (``train/loop.py:139-152, 303-356, 430-470, 555-615`` of
+the JAX package, whose jit gives each step the global batch's semantics):
+given a `parallel.DataGroup`, a step takes its node's batch, keeps this
+rank's rows (`DataGroup.local_rows`), draws the augmentation for the global
+batch and takes its rows, normalizes with the global batch's BatchNorm
+statistics (`models.batch_norm.global_statistics`), takes its share of the
+global loss (`ops.losses`, normalizers summed over the group), sums the
+gradients over the group in one flat bucket and logs the global losses; the
+clip and ``grad_norm`` see the summed gradient. With ``shard_optimizer``
+and more than one rank the AdamW moments are sharded (`parallel.zero`).
+Validation decodes each rank's rows and gathers them to the node's first
+rank, which computes the metrics of the node's share of the split.
 """
 
 from __future__ import annotations
@@ -36,19 +49,24 @@ import contextlib
 import dataclasses
 import functools
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import AugmentSpec, CompatFlags, DetectorSpec, TrainSpec
+from ..models.batch_norm import global_statistics
 from ..models.detector import MultiModal3DDetector
 from ..ops.augment import augment_modalities, draw_augmentation, step_generator
 from ..ops.decode import decode_centernet_predictions
 from ..ops.losses import centernet_loss, detection_loss, prepare_mlp_targets
 from ..ops.preprocess import normalize_images
 from ..ops.targets import prepare_centernet_targets
+from ..parallel.distributed import barrier, global_rows, sum_flat
 from ..utils.device import resolve_device
+
+if TYPE_CHECKING:
+    from ..parallel.mesh import DataGroup
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -206,6 +224,7 @@ class Optimizer:
     """
 
     def __init__(self, train_spec: TrainSpec, compat: CompatFlags, steps_per_epoch: int = 1):
+        self.spec = (train_spec, compat, steps_per_epoch)
         self.lr_at = lr_schedule(train_spec, compat, steps_per_epoch)
         # optax keeps a schedule's own count beside AdamW's (utils.convert)
         self.scheduled = not (compat.constant_lr or train_spec.lr_schedule == "constant")
@@ -240,6 +259,12 @@ class Optimizer:
             grads, self._acc = self._acc, None
         if self.max_norm is not None:
             grads = clip_by_global_norm(grads, self.max_norm)
+        self._step(grads)
+        self.updates += 1
+        return True
+
+    def _step(self, grads: List[torch.Tensor]) -> None:
+        """One AdamW step of every parameter at this update's rate."""
         for p, g in zip(self.params, grads):
             p.grad = g
         for group in self.adamw.param_groups:
@@ -247,8 +272,6 @@ class Optimizer:
         self.adamw.step()
         for p in self.params:
             p.grad = None
-        self.updates += 1
-        return True
 
 
 def make_optimizer(train_spec: TrainSpec, compat: CompatFlags, steps_per_epoch: int = 1) -> Optimizer:
@@ -260,12 +283,16 @@ def make_optimizer(train_spec: TrainSpec, compat: CompatFlags, steps_per_epoch: 
 class TrainStep:
     """`train_step(batch) -> losses` (see `make_train_step`); `step` counts
     the calls, as the JAX package's ``TrainState.step``. A call runs
-    `augmented`, `forward`, `loss`, `gradients` and `update` in turn."""
+    `augmented`, `forward`, `loss`, `gradients` and `update` in turn, on
+    this rank's rows of the batch under a `data` group."""
 
     def __init__(self, model: MultiModal3DDetector, optimizer: Optimizer, train_spec: TrainSpec,
                  compat: CompatFlags, check_gradients: bool, device: torch.device,
-                 augment: Optional[AugmentSpec] = None):
+                 augment: Optional[AugmentSpec] = None, data: Optional["DataGroup"] = None):
         self.model, self.optimizer, self.device = model, optimizer, device
+        self.data = data
+        self.group = None if data is None else data.group
+        global_statistics(model, self.group)
         self.train_spec, self.compat = train_spec, compat
         self.check_gradients = check_gradients
         self.augment = None if compat.skip_augmentation else (augment or AugmentSpec())  # Q14
@@ -289,8 +316,13 @@ class TrainStep:
         spec, device = self.model.spec, self.device
         cams, lidar, radar = _model_inputs(spec, batch, device, self.dtype)
         boxes = _tensor(batch["gt_boxes"], device)
-        draws = draw_augmentation(step_generator(self.train_spec.seed, self.step), self.augment,
-                                  boxes.shape[0], None if radar is None else radar.shape)
+        rows = boxes.shape[0]
+        # the draws of the global batch (every rank's rows), this rank's taken
+        total = rows if self.data is None else rows * self.data.size
+        draws = draw_augmentation(step_generator(self.train_spec.seed, self.step), self.augment, total,
+                                  None if radar is None else (total,) + tuple(radar.shape[1:]))
+        if self.data is not None:
+            draws = draws.rows(global_rows(rows, self.group))
         cams, lidar, radar, boxes = augment_modalities(draws, cams, lidar, radar, boxes, self.augment,
                                                        geometry_frozen=self.geometry_frozen)
         out = dict(batch, gt_boxes=boxes)
@@ -318,7 +350,7 @@ class TrainStep:
             targets = prepare_mlp_targets(_tensor(batch["gt_boxes"], self.device),
                                           _tensor(batch["gt_labels"], self.device),
                                           num_classes=spec.num_classes)
-            return detection_loss(preds, targets)
+            return detection_loss(preds, targets, group=self.group)
         targets = prepare_centernet_targets(
             _tensor(batch["gt_boxes"], self.device),
             _tensor(batch["gt_labels"], self.device),
@@ -328,18 +360,24 @@ class TrainStep:
             corrected_gaussian_radius=self.compat.corrected_gaussian_radius,
         )
         return centernet_loss(preds, targets, weights=self.train_spec.loss_weights,
-                              double_sigmoid=self.compat.double_sigmoid_focal)
+                              double_sigmoid=self.compat.double_sigmoid_focal, group=self.group)
 
     def gradients(self, total_loss: torch.Tensor) -> List[torch.Tensor]:
         """The gradient of each trained parameter; one the loss does not
-        reach is zero, as in JAX."""
+        reach is zero, as in JAX. Under a data group, summed over it."""
         grads = torch.autograd.grad(total_loss, self.params, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
+        return grads if self.group is None else sum_flat(grads, self.group)
 
     def update(self, losses: Dict[str, torch.Tensor], grads: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One optimizer update; returns the detached loss dict (with
-        ``grad_norm`` and ``grads_finite`` under `check_gradients`)."""
+        ``grad_norm`` and ``grads_finite`` under `check_gradients`); under a
+        data group the losses are the global batch's, the sums of the
+        ranks' shares."""
         losses = {k: v.detach() for k, v in losses.items()}
+        if self.group is not None:
+            (total,) = sum_flat([torch.stack(list(losses.values()))], self.group)
+            losses = dict(zip(losses, total.unbind()))
         if self.check_gradients:
             norm = global_norm(grads)
             losses["grad_norm"] = norm
@@ -349,6 +387,8 @@ class TrainStep:
         return losses
 
     def __call__(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        if self.data is not None:
+            batch = self.data.local_rows(batch)
         batch = self.augmented(batch)
         losses = self.loss(self.forward(batch), batch)
         return self.update(losses, self.gradients(losses["total_loss"]))
@@ -362,6 +402,7 @@ def make_train_step(
     augment=None,
     check_gradients: bool = False,
     device=None,
+    process_group: Optional["DataGroup"] = None,
 ) -> TrainStep:
     """Returns train_step(batch) -> the loss dict (``total_loss`` and the
     five CenterNet terms, or the MLP head's ``cls_loss`` and ``box_loss``;
@@ -377,10 +418,14 @@ def make_train_step(
     off, each step first augments the batch by `augment` (an `AugmentSpec`,
     its defaults when None), the flip and scale frozen on the geometric
     camera-to-BEV. Under ``camera_encoder.freeze_bn`` the camera encoder's
-    BatchNorms keep their running statistics (`ResNetCameraEncoder.train`)."""
+    BatchNorms keep their running statistics (`ResNetCameraEncoder.train`).
+
+    With a `process_group` (`parallel.make_data_group`) the step takes the
+    node's batch and trains on this rank's rows with the global batch's
+    semantics (see the module docstring); every rank calls it alike."""
     device = resolve_device(device)
     model.to(device).train()
-    return TrainStep(model, optimizer, train_spec, compat, check_gradients, device, augment)
+    return TrainStep(model, optimizer, train_spec, compat, check_gradients, device, augment, process_group)
 
 
 def mlp_detections(preds: Dict[str, torch.Tensor]) -> List[Dict[str, np.ndarray]]:
@@ -409,7 +454,14 @@ class Trainer:
     ``camera_encoder.pretrained``. Checkpoints hold the JAX package's payload
     (``params``, ``batch_stats``, ``opt_state``, ``step``, ``epoch``,
     ``best_map``) in its layout, so each package restores the other's.
-    Mesh, ZeRO and multi-process training are not ported (ROADMAP A13)."""
+
+    `process_group` (a `parallel.DataGroup`) trains data-parallel (see the
+    module docstring); `shard_optimizer` then shards the AdamW moments
+    (ZeRO-1, `parallel.zero`) when the group has more than one rank. Under a
+    group the global rank 0 writes the checkpoints, whose moments are the
+    gathered full ones (the JAX layout, restored by either package and
+    sharded again on load); every rank must call `save_checkpoint` and
+    `load_checkpoint`."""
 
     def __init__(
         self,
@@ -420,6 +472,8 @@ class Trainer:
         check_gradients: bool = False,
         device=None,
         augment: Optional[AugmentSpec] = None,
+        process_group: Optional["DataGroup"] = None,
+        shard_optimizer: bool = False,
     ):
         self.model = model
         self.spec = model.spec
@@ -428,7 +482,14 @@ class Trainer:
         self.check_gradients = check_gradients
         self.augment = augment
         self.device = resolve_device(device)
-        self.optimizer = make_optimizer(train_spec, compat, steps_per_epoch)
+        self.data = process_group
+        self.shard_optimizer = bool(shard_optimizer and process_group is not None and process_group.size > 1)
+        if self.shard_optimizer:
+            from ..parallel.zero import ZeroOptimizer
+
+            self.optimizer = ZeroOptimizer(train_spec, compat, steps_per_epoch, process_group.group)
+        else:
+            self.optimizer = make_optimizer(train_spec, compat, steps_per_epoch)
         self.train_step: Optional[TrainStep] = None
         self.eval_step: Optional[Callable] = None
         self.best_map = -1.0
@@ -453,7 +514,7 @@ class Trainer:
         maybe_load_pretrained_camera(self.model, self.spec)
         self.train_step = make_train_step(
             self.model, self.optimizer, self.train_spec, self.compat, augment=self.augment,
-            check_gradients=self.check_gradients, device=self.device,
+            check_gradients=self.check_gradients, device=self.device, process_group=self.data,
         )
         self.eval_step = make_eval_step(self.model, self.compat, device=self.device)
         return self
@@ -517,9 +578,23 @@ class Trainer:
         if self.eval_step is None:
             raise RuntimeError("call init_state first")
         predictions, ground_truths = [], []
+        data = self.data
         for batch in loader:
             n = len(batch["gt_boxes"])
-            decoded = self.eval_step(batch)
+            if data is None:
+                decoded = self.eval_step(batch)
+            else:
+                # each rank decodes its rows of the batch, padded to split
+                # evenly by repeating the last row (as the JAX Trainer pads
+                # for its mesh), and the node's first rank gets them all
+                pad = (-n) % data.node_size
+                if pad:
+                    batch = {k: np.concatenate([v] + [v[-1:]] * pad) if isinstance(v, np.ndarray) else v
+                             for k, v in batch.items()}
+                decoded = data.gather_node_rows(dict(self.eval_step(data.local_rows(batch))))
+                if not data.is_node_leader:
+                    continue
+                decoded = {k: v[:n] for k, v in decoded.items()}
             if not self.spec.head_is_centernet:
                 dets = mlp_detections(decoded)
             elif post_process is not None:
@@ -533,30 +608,57 @@ class Trainer:
             for bi in range(n):
                 ground_truths.append({"boxes": np.asarray(batch["gt_boxes"][bi]),
                                       "labels": np.asarray(batch["gt_labels"][bi])})
-        return compute_metrics(
-            predictions, ground_truths, num_classes=self.spec.num_classes,
-            report_class_order="reference" if self.compat.metric_report_class_order else "dataset",
-        )
+        metrics = None
+        if data is None or data.is_node_leader:
+            metrics = compute_metrics(
+                predictions, ground_truths, num_classes=self.spec.num_classes,
+                report_class_order="reference" if self.compat.metric_report_class_order else "dataset",
+            )
+        return metrics if data is None else data.node_broadcast(metrics)
 
     # -- checkpointing ---------------------------------------------------------
-    def _payload(self, epoch: int, best_map: float, empty: bool = False) -> Dict:
+    def _full_optimizer(self, empty: bool = False) -> Optimizer:
+        """The optimizer with every parameter's moments: under ZeRO a plain
+        `Optimizer` holding the gathered moments (a collective: every rank
+        calls it), or with `empty` none, a restore's template."""
+        if not self.shard_optimizer:
+            return self.optimizer
+        if empty:
+            full = Optimizer(*self.optimizer.spec).init(self.optimizer.params)
+            full.updates = self.optimizer.updates
+            return full
+        return self.optimizer.gathered()
+
+    def _payload(self, epoch: int, best_map: float, empty: bool = False,
+                 optimizer: Optional[Optimizer] = None) -> Dict:
         from ..utils.convert import export_jax_variables, opt_state_to_jax
 
         variables = export_jax_variables(self.model, empty=empty)
+        optimizer = optimizer or self._full_optimizer(empty)
         return {
             "params": variables["params"],
             "batch_stats": variables["batch_stats"],
-            "opt_state": opt_state_to_jax(self.optimizer, self.model, empty=empty),
+            "opt_state": opt_state_to_jax(optimizer, self.model, empty=empty),
             "step": np.asarray(self.step, np.int32),
             "epoch": np.asarray(epoch, np.int32),
             "best_map": np.asarray(best_map, np.float32),
         }
 
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes checkpoints: the global rank 0."""
+        return self.data is None or self.data.rank == 0
+
     def save_checkpoint(self, path: str, epoch: int) -> None:
-        """Write the payload in the JAX package's msgpack layout."""
+        """Write the payload in the JAX package's msgpack layout (global
+        rank 0 only, the others waiting until it is written)."""
         from .checkpoint import save_checkpoint
 
-        save_checkpoint(path, self._payload(epoch, self.best_map))
+        optimizer = self._full_optimizer()
+        if self.writes:
+            save_checkpoint(path, self._payload(epoch, self.best_map, optimizer=optimizer))
+        if self.data is not None:
+            barrier(self.data.group)
 
     def load_checkpoint(self, path: str, restore_optimizer: bool = True,
                         keep_on_shape_mismatch: bool = False) -> int:
@@ -568,6 +670,8 @@ class Trainer:
 
         if self.train_step is None:
             raise RuntimeError("init_state before restoring")
+        if self.data is not None:
+            barrier(self.data.group)  # a checkpoint being written is read by no rank
         # the template gives keys, shapes and dtypes without exporting the
         # state; only a leaf the file lacks reads the current value
         template = self._payload(0, 0.0, empty=True)
@@ -576,7 +680,10 @@ class Trainer:
         load_jax_variables(self.model, {"params": restored["params"],
                                         "batch_stats": restored["batch_stats"]})
         if restore_optimizer:
-            opt_state_from_jax(self.optimizer, self.model, restored["opt_state"])
+            full = self._full_optimizer(empty=True)
+            opt_state_from_jax(full, self.model, restored["opt_state"])
+            if self.shard_optimizer:
+                self.optimizer.load_gathered(full)  # each rank keeps its shard
         self.train_step.step = int(restored["step"])
         self.best_map = float(restored["best_map"])
         return int(restored["epoch"])

@@ -1,8 +1,10 @@
 """Training CLI of the port: the surface of the root ``train_detect.py``
-(``:22-351``), on one GPU:
+(``:22-351``), on one GPU or, data-parallel, one GPU per process:
 
   python -m bevfusion_multimodal_3d_object_detection_tpu_torch.train_detect train [config.yaml]
   python -m bevfusion_multimodal_3d_object_detection_tpu_torch.train_detect infer [checkpoint]
+  python -m torch.distributed.run --nproc_per_node N \
+      -m bevfusion_multimodal_3d_object_detection_tpu_torch.train_detect train config.yaml
 
 Loads the nuScenes infos of ``dataset.data_root`` (uint8 camera wire),
 trains ``train.num_epochs`` epochs with a per-step JSONL log in
@@ -23,8 +25,19 @@ defaults, not the yaml's ``dataset.augmentation`` values (a followed quirk).
 sample of ``./data/nuscenes`` through the `InferenceEngine` on
 ``configs/base.yaml``, without the figure. ``debug.profile: true`` traces
 the first epoch with `torch.profiler` into ``<log_dir>/profile``
-(`utils.profiling.profile_trace`). Not ported: ``parallel.*`` (ROADMAP
-A13), which raises.
+(`utils.profiling.profile_trace`).
+
+Data parallelism (``parallel:``, root ``train_detect.py:58-170, 229, 246,
+298-312``): ``data_parallel: N`` trains on the N processes of one torchrun
+node (``WORLD_SIZE`` must be N), the global batch ``train.batch_size``
+split into equal row blocks; ``multi_host`` trains on every process of every
+node, each node reading its strided share of the epoch, the global batch
+``nnodes x batch_size``; ``shard_optimizer`` shards the AdamW moments
+(ZeRO-1). The process group is NCCL on CUDA and gloo on the CPU. Only the
+global rank 0 writes the per-step log, ``metrics_output.txt`` and the
+checkpoints; with several nodes the scalar metrics are averaged over them.
+Not ported: ``view_parallel`` > 1 and ``bev_spatial`` (ROADMAP A13b) and
+the orbax checkpoint backends, which raise.
 """
 
 from __future__ import annotations
@@ -35,9 +48,12 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-from .config import CompatFlags, DataSpec, DetectorSpec, PostProcessSpec, TrainSpec, load_config
+import torch
+
+from .config import CompatFlags, DataSpec, DetectorSpec, ParallelSpec, PostProcessSpec, TrainSpec, load_config
 from .data.dataset import DataLoader, NuScenesDataset, collate_fn
 from .models.detector import MultiModal3DDetector
+from .parallel import A13B, all_processes_mean, make_data_group, maybe_initialize, rank_layout
 from .train.checkpoint import is_committed_checkpoint, latest_checkpoint
 from .train.loop import Trainer, with_data_widths
 from .utils.cache import enable_compilation_cache
@@ -45,17 +61,9 @@ from .utils.metrics import save_and_print_metrics
 from .utils.profiling import profile_trace
 
 
-def _refuse_unported(config: Dict) -> None:
-    par = config.get("parallel", {}) or {}
-    multi_host = par.get("multi_host", {})
-    if isinstance(multi_host, dict):
-        multi_host = multi_host.get("enable", False)
-    if (par.get("data_parallel", 1) > 1 or par.get("view_parallel", 1) > 1 or multi_host
-            or par.get("shard_optimizer", False) or par.get("bev_spatial", False)):
-        raise NotImplementedError(
-            "parallel.* (data/view parallelism, ZeRO, BEV spatial, multi-host) "
-            "is not ported yet (ROADMAP A13)"
-        )
+def _refuse_unported(config: Dict, par: ParallelSpec) -> None:
+    if par.view_parallel > 1 or par.bev_spatial:
+        raise NotImplementedError(A13B)
     backend = TrainSpec.from_config(config).ckpt_backend
     if backend != "msgpack":
         raise NotImplementedError(
@@ -90,24 +98,47 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
     enable_compilation_cache()
     if config is None:
         config = load_config(config_path or "configs/base.yaml")
-    _refuse_unported(config)
+    par = ParallelSpec.from_config(config)
+    _refuse_unported(config, par)
     spec = DetectorSpec.from_config(config)
     train_spec = TrainSpec.from_config(config)
     data_spec = DataSpec.from_config(config)
     compat = CompatFlags.from_config(config)
+    if par.multi_host and par.shard_optimizer and train_spec.ckpt_backend == "msgpack":
+        # the JAX CLI's refusal (its msgpack gathers host-locally); the
+        # port's orbax backends stay with the JAX package
+        raise SystemExit(
+            "parallel.shard_optimizer with multi_host requires an orbax checkpoint backend "
+            "(train.checkpoint.backend: orbax|orbax_async): msgpack gathers host-locally and cannot "
+            "serialize cross-host optimizer shards"
+        )
+    group = None
+    if maybe_initialize(par.multi_host or par.data_parallel > 1, par.coordinator_address, par.num_processes,
+                        par.process_id, device=device):
+        group = make_data_group(par.data_parallel, par.view_parallel, multi_host=par.multi_host)
+    elif rank_layout().world_size > 1:
+        raise ValueError(
+            f"{rank_layout().world_size} processes run, but parallel.data_parallel is 1 and parallel.multi_host "
+            "is off: each would train alone and write the same files"
+        )
+    is_main = group is None or group.rank == 0
+    node, nodes = (0, 1) if group is None else (group.layout.node, group.layout.num_nodes)
     print(f"Model: {spec.modality_string()} / {spec.fusion_type} / {spec.detection_head}")
+    if group is not None:
+        print(f"Data parallel: rank {group.rank} of {group.size}, node {node} of {nodes}")
 
     # uint8 wire: images ship as raw bytes and are normalized on the device
     train_ds = NuScenesDataset(data_root=data_spec.data_root, split="train", config=config,
                                seed=train_spec.seed, emit_uint8=True)
     val_ds = NuScenesDataset(data_root=data_spec.data_root, split="val", config=config,
                              seed=train_spec.seed, emit_uint8=True)
+    # each node reads its strided share of the epoch
     train_loader = DataLoader(train_ds, batch_size=train_spec.batch_size, shuffle=True,
-                              drop_last=True, seed=train_spec.seed)
-    val_loader = DataLoader(val_ds, batch_size=train_spec.batch_size)
+                              drop_last=True, seed=train_spec.seed, process_index=node, process_count=nodes)
+    val_loader = DataLoader(val_ds, batch_size=train_spec.batch_size, process_index=node, process_count=nodes)
     if len(train_loader) == 0:
         raise SystemExit(
-            f"train loader produced no batches: {len(train_ds)} samples < batch_size "
+            f"train loader produced no batches: {len(train_ds)} samples (per-process) < batch_size "
             f"{train_spec.batch_size} with drop_last — reduce train.batch_size or add data"
         )
 
@@ -117,7 +148,7 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
     trainer = Trainer(
         model, train_spec, compat, steps_per_epoch=len(train_loader),
         check_gradients=(config.get("debug", {}) or {}).get("check_gradients", False),
-        device=device,
+        device=device, process_group=group, shard_optimizer=par.shard_optimizer,
     )
     trainer.init_state(sample)
     print(f"Device: {trainer.device}")
@@ -129,37 +160,49 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
             resume_path, _ = latest_checkpoint(train_spec.save_dir)
         if resume_path:
             start_epoch = trainer.load_checkpoint(resume_path) + 1
-            print(f"Resumed from {resume_path} at epoch {start_epoch}")
+            if is_main:
+                print(f"Resumed from {resume_path} at epoch {start_epoch}")
 
     save_dir = Path(train_spec.save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     log_dir = Path(((config.get("train", {}) or {}).get("logging", {}) or {}).get("log_dir", "./logs"))
     log_dir.mkdir(parents=True, exist_ok=True)
-    log_file = str(log_dir / "train_log.jsonl")
+    log_file = str(log_dir / "train_log.jsonl") if is_main else None
     keep_last = ((config.get("train", {}) or {}).get("checkpoint", {}) or {}).get("keep_last", 0)
     pp = None if compat.ignore_post_processing_config else PostProcessSpec.from_config(config, "val")
     # debug.profile (dead in the reference, configs/base.yaml:643): trace
     # the first epoch this run trains
     profile = (config.get("debug", {}) or {}).get("profile", False)
+    log_every = 10 if is_main else 0
 
     for epoch in range(start_epoch, train_spec.num_epochs):
         t0 = time.time()
         if profile and epoch == start_epoch:
             with profile_trace(str(log_dir / "profile")):
-                avg_loss = trainer.train_one_epoch(train_loader, log_file=log_file)
+                avg_loss = trainer.train_one_epoch(train_loader, log_every=log_every, log_file=log_file)
         else:
-            avg_loss = trainer.train_one_epoch(train_loader, log_file=log_file)
-        print(f"Epoch {epoch}: loss={avg_loss:.4f} ({time.time() - t0:.1f}s)")
+            avg_loss = trainer.train_one_epoch(train_loader, log_every=log_every, log_file=log_file)
+        if is_main:
+            print(f"Epoch {epoch}: loss={avg_loss:.4f} ({time.time() - t0:.1f}s)")
         if (epoch + 1) % train_spec.save_interval == 0 or epoch + 1 == train_spec.num_epochs:
+            # every rank enters (ZeRO gathers the moments); rank 0 writes,
+            # and the others wait until it has before rank 0 prunes
             trainer.save_checkpoint(str(save_dir / f"checkpoint_epoch_{epoch}.msgpack"), epoch)
-            if keep_last and keep_last > 0:
+            if keep_last and keep_last > 0 and is_main:
                 _prune(save_dir, keep_last)
         metrics = trainer.evaluate(val_loader, post_process=pp)
-        save_and_print_metrics(metrics, "metrics_output.txt")
+        if nodes > 1:
+            # each node validated its share of the split: average the
+            # scalar metrics over the nodes (per-class lists stay the node's)
+            scalars = {k: v for k, v in metrics.items() if isinstance(v, (int, float))}
+            metrics = {**metrics, **all_processes_mean(scalars)}
+        if is_main:
+            save_and_print_metrics(metrics, "metrics_output.txt")
         if train_spec.save_best and metrics["mAP"] > trainer.best_map:
             trainer.best_map = metrics["mAP"]
             trainer.save_checkpoint(str(save_dir / "best_model.msgpack"), epoch)
-            print(f"New best mAP {trainer.best_map:.4f} — saved best_model")
+            if is_main:
+                print(f"New best mAP {trainer.best_map:.4f} — saved best_model")
     return trainer
 
 
@@ -176,6 +219,8 @@ def inference(model_path: str, data_root: str = "./data/nuscenes", device=None) 
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "train":
         main(sys.argv[2] if len(sys.argv) > 2 else None)
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     elif len(sys.argv) > 1 and sys.argv[1] == "infer":
         inference(sys.argv[2] if len(sys.argv) > 2 else "./checkpoints/best_model.msgpack")
     else:

@@ -175,7 +175,34 @@ Phases (any failure raises and the script exits non-zero):
    `device_memory_stats()`; (c) `debug.profile: true` through
    `train_detect.main` on phase 11's tree for one epoch leaves a trace under
    log_dir/profile; (d) the serve CLI's --export-aot, then --aot in a
-   subprocess: one request answered, SIGTERM drains, exit 0.
+   subprocess: one request answered, SIGTERM drains, exit 0;
+16. data parallelism on the one card: (a) a process group of one rank over
+   NCCL on cuda:0: three data-parallel train steps of base.yaml at batch 4
+   (synced BatchNorm, global loss normalizers, the gradient all-reduce),
+   each from the plain step's state before it, held to the plain step in
+   float64 at phase 9's limits; then three f32 (TF32 off) and three bf16
+   mixed-precision steps of each, the losses held at 1e-5 and 2^-7 and
+   phase 9's other shares reported (two f32 runs that differ only in
+   rounding do not meet those limits against each other), and their step
+   times side by side;
+   (b) two rank processes (this script with --dp-rank) on cuda:0 over gloo
+   (NCCL on two cards where there are two) at 2 rows each against one
+   process at 4, three float64 steps at the same limits (f32 rounding
+   crosses kinks differently at 2 rows than at 4), the per-rank BatchNorm
+   statistics and per-rank focal-loss positives mutants shown to exceed
+   them, ZeRO-1's first float64 step against plain data parallelism's
+   (where the backend's all-gathers of CUDA tensors give the right values)
+   and its moment bytes, the f32 step time through the host-copied
+   collectives (no scaling figure); (c)
+   `InferenceServer(devices=[cuda:0, cuda:0])` at batch 8, bf16, on phase
+   4's 19 requests, B1 counted (2 a replica a batch) and the answers held to
+   one device's at the replicas' part of 4 rows (bf16 results follow the
+   batch shape through cuDNN's algorithms) at scores 1e-4 and boxes 1e-3,
+   batch latency beside one device's at 8, and `serve --data-parallel`
+   beyond the cards exiting with the device-count message; (d) the training CLI under `python -m
+   torch.distributed.run --standalone --nproc_per_node 1` with multi_host on
+   phase 11's tree for one epoch (one checkpoint, one report), then resumed
+   in this process bit for bit against that checkpoint.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.
@@ -253,6 +280,7 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.preprocess import (
 from bevfusion_multimodal_3d_object_detection_tpu_torch.inference_engine import InferenceEngine
 from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import InferenceServer, make_http_server
 from bevfusion_multimodal_3d_object_detection_tpu_torch.train import loop as train_loop
+from bevfusion_multimodal_3d_object_detection_tpu_torch.train.checkpoint import msgpack_restore
 from bevfusion_multimodal_3d_object_detection_tpu_torch.train.loop import (
     Trainer,
     make_eval_step,
@@ -2955,6 +2983,439 @@ def aot_profiling_cache(config, tree_config: dict, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data parallelism
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def step_record(step, model, losses) -> dict:
+    """A step's losses, state and AdamW first moments (host, float64), as
+    `TrainRun` records them."""
+    copy64 = lambda t: t.detach().to("cpu", torch.float64, copy=True)
+    opt = step.optimizer
+    if hasattr(opt, "gathered"):  # ZeRO-1: every rank's moments
+        opt = opt.gathered()
+    return {"losses": {k: float(v) for k, v in losses.items()},
+            "state": {k: copy64(v) for k, v in model.state_dict().items()},
+            "mu": {n: copy64(opt.adamw.state[p]["exp_avg"]) for n, p in model.named_parameters()}}
+
+
+def dp_train_step(config, run_spec, group=None, mutant=None, optimizer=None, device=None,
+                  dtype=torch.float32):
+    """A train step of base.yaml's model (seed 10) in `dtype`, data-parallel
+    over `group` when given; `mutant` "bn" takes each rank's BatchNorm
+    statistics alone ("num_pos": `mutated_losses`)."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.models.batch_norm import global_statistics
+
+    spec, compat = DetectorSpec.from_config(config), CompatFlags.from_config(config)
+    g = torch.Generator().manual_seed(10)
+    model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding).init_weights(g).to(dtype)
+    step = make_train_step(model, optimizer or make_optimizer(run_spec, compat), run_spec, compat,
+                           check_gradients=True, device=device, process_group=group)
+    if mutant == "bn":
+        global_statistics(model, None)
+    return step
+
+
+@contextlib.contextmanager
+def mutated_losses(mutant):
+    """Under "num_pos", the focal loss counts each rank's positives alone."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import losses as port_losses
+
+    focal = port_losses.focal_loss
+    if mutant == "num_pos":
+        port_losses.focal_loss = lambda *a, group=None, **k: focal(*a, **k)
+    try:
+        yield
+    finally:
+        port_losses.focal_loss = focal
+
+
+def snapshot(step) -> dict:
+    """A step's model state, AdamW state and counts."""
+    return {"model": {k: v.detach().clone() for k, v in step.model.state_dict().items()},
+            "adamw": copy.deepcopy(step.optimizer.adamw.state_dict()),
+            "updates": step.optimizer.updates, "step": step.step}
+
+
+def restore(step, snap: dict) -> None:
+    step.model.load_state_dict(snap["model"])
+    step.optimizer.adamw.load_state_dict(copy.deepcopy(snap["adamw"]))
+    step.optimizer.updates, step.step = snap["updates"], snap["step"]
+
+
+def share_from_rank0(step, updates: int) -> None:
+    """Every rank's model and AdamW moments set to rank 0's (broadcast)."""
+    tensors = list(step.model.state_dict().values())
+    if updates:
+        opt = step.optimizer
+        for p in opt.params:
+            if p not in opt.adamw.state:  # a rank that has not stepped yet
+                opt.adamw.state[p] = {"step": torch.tensor(float(updates)), "exp_avg": torch.zeros_like(p),
+                                      "exp_avg_sq": torch.zeros_like(p)}
+            st = opt.adamw.state[p]
+            st["step"].fill_(float(updates))
+            tensors += [st["exp_avg"], st["exp_avg_sq"]]
+        opt.updates = step.step = updates
+    for t in tensors:
+        torch.distributed.broadcast(t, src=0)
+
+
+def lockstep(config, run_spec, batch, n: int, group, device=None, rank: int = 0, dtype=torch.float32) -> tuple:
+    """`n` steps of the data-parallel step and the plain step (rank 0 only),
+    each data-parallel step from the plain step's state before it (phase 9's
+    scheme: the runs do not drift apart on rounding). Returns the two runs'
+    records (rank 0) and the data-parallel step."""
+    plain = dp_train_step(config, run_spec, device=device, dtype=dtype) if rank == 0 else None
+    dp = dp_train_step(config, run_spec, group, device=device, dtype=dtype)
+    got, want = [], []
+    for _ in range(n):
+        updates = 0
+        if plain is not None:
+            snap = snapshot(plain)
+            restore(dp, snap)
+            updates = snap["updates"]
+        share_from_rank0(dp, updates if rank == 0 else len(got))
+        got.append(step_record(dp, dp.model, dp(batch)))
+        if plain is not None:
+            want.append(step_record(plain, plain.model, plain(batch)))
+    del plain
+    return got, want, dp
+
+
+def steps_agree(got: list, want: list, lr: float, what: str, check: bool = True) -> dict:
+    """Phase 9's f32 limits (`step_errors`) on each step of two runs,
+    raising on a failure when `check`; returns the worst ratio to each limit
+    and, under ``first_moments_top``, the three tensors whose first moments
+    come nearest theirs."""
+    worst, near = {}, {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        prev = want[i - 1]["mu"] if i else None
+        r, failures = step_errors(g, w, prev, lr, f"{what} step {i + 1}", 1e-4)
+        if check and failures:
+            raise AssertionError("; ".join(failures))
+        worst = {k: max(v, worst.get(k, 0.0)) for k, v in r.items()}
+        largest = max(float(v.abs().max()) for v in w["mu"].values())
+        for name, m in g["mu"].items():
+            top = float(w["mu"][name].abs().max())
+            if top >= 1e-9 * largest:  # not a zero-gradient tensor (`step_errors`)
+                near[name] = max(near.get(name, 0.0), float((m - w["mu"][name]).abs().max()) / (1e-4 * top))
+    return dict(worst, first_moments_top=sorted(near.items(), key=lambda kv: -kv[1])[:3])
+
+
+def timed_steps(steps: dict, batch, reps: int = 5) -> dict:
+    """Median host ms of a step (up to a synchronize) of each of `steps`,
+    in turns."""
+    times = {k: [] for k in steps}
+    for _ in range(reps):
+        for k, step in steps.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def dp_world_one(config) -> dict:
+    """16a: the process group of one rank over NCCL on cuda:0 and base.yaml
+    at batch 4. Three float64 data-parallel steps, each from the plain
+    step's state before it, held to the plain step at phase 9's limits;
+    then three f32 (TF32 off) and three bf16 mixed-precision steps of each,
+    the losses held at 1e-5 (f32) and 2^-7 (bf16) relative and the other
+    shares of phase 9's limits reported (two f32 runs differ by both their
+    roundings: at full width cuDNN's f32 weight gradients sum ~540,000 terms
+    a weight in the trunk, and a data-parallel f32 step came 1.44 of the
+    first moments' limit from the float64 step); and the step times side
+    by side."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel import make_data_group, maybe_initialize
+
+    maybe_initialize(True, coordinator_address=f"127.0.0.1:{free_port()}", num_processes=1, process_id=0,
+                     backend="nccl", device="cuda:0")
+    group = make_data_group(n_data=1)
+    spec, ts = DetectorSpec.from_config(config), TrainSpec.from_config(config)
+    batch = train_batch(spec, np.random.RandomState(9), ts.batch_size, ts.max_objects, 40)
+    dp, plain, step = lockstep(config, ts, batch, 3, group, dtype=torch.float64)
+    out = {"float64": steps_agree(dp, plain, ts.learning_rate, "world-1 NCCL vs plain float64")}
+    log(f"  16a float64: world-1 data-parallel step (NCCL) vs plain, 3 steps: worst share of each limit "
+        f"{json.dumps(out['float64'])}")
+    del dp, plain, step
+    torch.cuda.empty_cache()
+    for name, mixed, rtol in (("f32", False, 1e-5), ("bf16_mixed_precision", True, 2 ** -7)):
+        run_spec = dataclasses.replace(ts, mixed_precision=mixed)
+        torch.cuda.reset_peak_memory_stats()
+        dp, plain, dp_step = lockstep(config, run_spec, batch, 3, group)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        shares = steps_agree(dp, plain, ts.learning_rate, f"world-1 {name}", check=False)
+        losses = max(abs(d["losses"][k] - p["losses"][k]) / (rtol * abs(p["losses"][k]))
+                     for d, p in zip(dp, plain) for k in p["losses"]
+                     if k not in ("grad_norm", "grads_finite") and p["losses"][k])
+        if not losses <= 1.0 or not all(np.isfinite(d["losses"]["total_loss"]) for d in dp):
+            raise AssertionError(f"world-1 {name} losses {[d['losses'] for d in dp]} vs plain "
+                                 f"{[p['losses'] for p in plain]}")
+        plain_step = dp_train_step(config, run_spec)
+        ms = timed_steps({"plain": plain_step, "data_parallel": dp_step}, batch)
+        out[name] = {"losses_share_of_limit": losses, "phase9_shares": shares, "step_ms": ms,
+                     "peak_memory_gib_both_runs": peak, "losses": [d["losses"]["total_loss"] for d in dp]}
+        log(f"  16a {name}: world-1 data-parallel step (NCCL) vs plain, 3 steps: losses at {losses:.4f} of "
+            f"{rtol:.3g}; phase 9's shares {json.dumps(shares)}; step {ms['data_parallel']:.2f} ms vs "
+            f"{ms['plain']:.2f} ms plain (median of 5, in turns), peak {peak:.2f} GiB with both runs [{card()}]")
+        del dp, plain, plain_step, dp_step
+        torch.cuda.empty_cache()
+    return out
+
+
+def all_gather_probe(device) -> dict:
+    """Whether the process group's all-gathers of CUDA tensors (into one
+    tensor and into a list; small and 64 MB) give every rank's values."""
+    world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    out = {}
+    for n in (5, 1 << 24):
+        x = torch.arange(n, device=device, dtype=torch.float32) + 1e6 * rank
+        want = torch.cat([torch.arange(n, device=device, dtype=torch.float32) + 1e6 * r for r in range(world)])
+        full = torch.empty(world * n, device=device)
+        torch.distributed.all_gather_into_tensor(full, x)
+        parts = [torch.empty(n, device=device) for _ in range(world)]
+        torch.distributed.all_gather(parts, x)
+        out[f"into_tensor_{n}"] = bool(torch.equal(full, want))
+        out[f"list_{n}"] = bool(torch.equal(torch.cat(parts), want))
+    return out
+
+
+def dp_rank(job_path: str) -> int:
+    """16b's rank: the node batch of 4 over the process group of
+    ``RANK`` / ``WORLD_SIZE`` (gloo on cuda:0, or NCCL on cuda:RANK where
+    the job says so): three data-parallel f32 steps in lockstep with rank
+    0's single-process steps at batch 4 (`lockstep`), the step time, each
+    mutant's first step, the f32 step time, ZeRO-1's three steps (its
+    first against plain data parallelism's); all but the timing in float64.
+    Rank 0 compares. Writes a JSON result."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel import barrier, make_data_group, maybe_initialize
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel.zero import ZeroOptimizer
+
+    job = json.loads(Path(job_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    device = f"cuda:{rank}" if job["backend"] == "nccl" else "cuda:0"
+    torch.cuda.set_device(device)
+    maybe_initialize(True, backend=job["backend"], device=device, timeout_s=300)
+    group = make_data_group(n_data=2)
+    config = load_config("configs/base.yaml")
+    spec, compat, ts = DetectorSpec.from_config(config), CompatFlags.from_config(config), TrainSpec.from_config(config)
+    batch = train_batch(spec, np.random.RandomState(9), ts.batch_size, ts.max_objects, 40)
+    out = {"backend": job["backend"], "device": device}
+    with torch.cuda.device(device):
+        # float64: f32 rounding puts some ReLU inputs and max-pool windows on
+        # the other side of their kink in a batch of 2 rows than of 4, and
+        # phase 9's replay of the sides cannot map one onto the other
+        f64 = dict(device=device, dtype=torch.float64)
+        dp, plain, step = lockstep(config, ts, batch, 3, group, rank=rank, **f64)
+        del step
+        # each mutant's first step, from the same initial state
+        mutants = {}
+        for m in ("bn", "num_pos"):
+            with mutated_losses(m):
+                mstep = dp_train_step(config, ts, group, mutant=m, **f64)
+                mutants[m] = step_record(mstep, mstep.model, mstep(batch))
+            del mstep
+        torch.cuda.empty_cache()
+        step = dp_train_step(config, ts, group, device=device)
+        step(batch)  # warm-up
+        out["step_ms"] = timed_steps({"data_parallel": step}, batch)["data_parallel"]
+        del step
+        out["all_gather"] = all_gather_probe(device)
+        if all(out["all_gather"].values()):
+            zstep = dp_train_step(config, ts, group, optimizer=ZeroOptimizer(ts, compat, 1, group.group), **f64)
+            zero = [step_record(zstep, zstep.model, zstep(batch)) for _ in range(3)]
+            out["zero_moment_bytes"] = zstep.optimizer.moment_bytes()
+            out["zero_moment_share"] = out["zero_moment_bytes"] / sum(2 * p.numel() * 8 for p in zstep.model.parameters())
+            del zstep
+            dstep = dp_train_step(config, ts, group, **f64)
+            first = step_record(dstep, dstep.model, dstep(batch))
+            del dstep
+            # ZeRO-1's first step against plain data parallelism's, from the
+            # same state, at phase 9's limits, in float64: in f32 a parameter
+            # whose gradient is rounding noise (a bias right before a
+            # BatchNorm) moves by up to lr either way, as the noise falls
+            out["zero_vs_dp"] = steps_agree([zero[0]], [first], ts.learning_rate, "ZeRO-1 vs plain DP")
+        else:
+            out["zero"] = f"not run: this backend's all-gather of CUDA tensors gave {out['all_gather']}"
+        barrier()
+        if rank == 0:
+            out["worst_share_of_limits"] = steps_agree(dp, plain, ts.learning_rate, "2 ranks vs 1")
+            for m, rec in mutants.items():
+                worst, failures = step_errors(rec, plain[0], None, ts.learning_rate, f"{m} mutant", 1e-4)
+                if not failures:
+                    raise AssertionError(f"the per-rank {m} mutant passed the limits: {worst}")
+                out[f"{m}_mutant_worst"] = worst
+    Path(job["out"]).with_name(f"rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_two_ranks(tmp: Path) -> dict:
+    """16b: two rank processes at 2 rows each (gloo on cuda:0; NCCL on two
+    cards where there are two) against one process at 4."""
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    job = tmp / "dp_job.json"
+    job.write_text(json.dumps({"backend": backend, "out": str(tmp / "dp_out.json")}))
+    port = free_port()
+    procs = []
+    t = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   PYTHONPATH=str(Path(__file__).resolve().parent))
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(job)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
+    try:
+        outs = [p.communicate(timeout=420)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"16b rank {rank} exited {p.returncode}:\n{o[-6000:]}")
+    res = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+    out = dict(res[0], wall_s=time.perf_counter() - t, rank1_step_ms=res[1]["step_ms"])
+    zero = (f"ZeRO-1's first step vs plain DP's: worst share of each limit {json.dumps(out['zero_vs_dp'])}, "
+            f"{out['zero_moment_bytes'] / 2 ** 20:.1f} MiB of float64 moments a rank, "
+            f"{out['zero_moment_share']:.4f} of the full moments" if "zero_vs_dp" in out else out["zero"])
+    log(f"  16b two ranks ({backend}, {res[0]['device']}) at 2 rows vs one process at 4, 3 float64 steps: worst share "
+        f"of each limit {json.dumps(out['worst_share_of_limits'])}; "
+        f"mutants over the limits: BN {max(out['bn_mutant_worst'].values()):.3g}, num_pos "
+        f"{max(out['num_pos_mutant_worst'].values()):.3g}; {zero}; f32 step {out['step_ms']:.1f} ms "
+        f"({'host-copied gloo collectives, no scaling figure' if backend == 'gloo' else 'NCCL'}) [{card()}]")
+    return out
+
+
+def serving_replicas(config) -> dict:
+    """16c: two replicas on cuda:0 at batch 8 (parts of 4 rows) on phase 4's
+    requests, held to one device serving at the replicas' part of 4 rows
+    (the same shapes, so the same cuDNN algorithms: bf16 results depend on
+    them); one device at batch 8 for the latency and, reported, its
+    answers' distance; the serve CLI's --data-parallel beyond the cards."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch import serve as serve_cli
+
+    kw = dict(config=config, batch_size=8, max_delay_ms=20.0, score_threshold=0.0, use_bf16=True, fold_bn=True)
+    servers = {"one": InferenceServer(**kw), "one_at_4": InferenceServer(**dict(kw, batch_size=4)),
+               "two": InferenceServer(devices=["cuda:0", "cuda:0"], **kw)}
+    samples = make_samples(servers["one"].spec, np.random.RandomState(3), 4)
+    answers, out = {}, {}
+    for name, server in servers.items():
+        with server:
+            batches = server.stats["batches"]
+            answers[name], out[f"{name}_launches"] = served_requests(server, samples)
+            out[f"{name}_batches"] = server.stats["batches"] - batches
+    # B1 on the LiDAR and the radar points of each replica's part of each batch
+    if out["two_launches"] != 2 * 2 * out["two_batches"]:
+        raise AssertionError(f"two replicas launched B1 {out['two_launches']} times in {out['two_batches']} batches")
+    out["bit_equal"] = detections_agree(answers["two"], answers["one_at_4"], "two replicas vs one device at 4 rows")
+    out["batch_8_max_score_diff"] = max(
+        float(np.abs(by_position(g)["scores"] - by_position(w)["scores"]).max())
+        for g, w in zip(answers["two"], answers["one"]) if len(g["scores"]) == len(w["scores"]))
+    out["batch_latency_ms"] = batch_latency_ms({k: servers[k] for k in ("one", "two")}, [samples[0]] * 8)
+    n = torch.cuda.device_count() + 1
+    try:
+        serve_cli.main(["--data-parallel", str(n)])
+        raise AssertionError(f"serve --data-parallel {n} did not exit")
+    except SystemExit as e:
+        if "needs that many devices" not in str(e):
+            raise
+        out["cli_exit"] = str(e)
+    del servers
+    torch.cuda.empty_cache()
+    log(f"  16c two replicas on cuda:0: 19 requests in {out['two_batches']} batches, B1 {out['two_launches']} "
+        f"launches (one device: {out['one_launches']} in {out['one_batches']}); bit-equal to one device at 4 rows "
+        f"{out['bit_equal']}; against one device at batch 8 (other cuDNN algorithms) scores differ by up to "
+        f"{out['batch_8_max_score_diff']:.3g}; batch latency {out['batch_latency_ms']['two']:.2f} ms vs "
+        f"{out['batch_latency_ms']['one']:.2f} ms on one replica (uint8, median of 8, in turns); serve "
+        f"--data-parallel {n}: '{out['cli_exit']}' [{card()}]")
+    return out
+
+
+def torchrun_training(tree_config: dict, tmp: Path) -> dict:
+    """16d: the training CLI under torchrun (one process, multi_host on) on
+    phase 11's tree for one epoch, then resumed in this process."""
+    work = tmp / "torchrun"
+    work.mkdir()
+    cfg = copy.deepcopy(tree_config)
+    cfg["parallel"]["multi_host"] = {"enable": True}
+    cfg["train"]["checkpoint"]["save_dir"] = str(work / "checkpoints")
+    cfg["train"]["logging"]["log_dir"] = str(work / "logs")
+    cfg["train"]["num_epochs"] = 1
+    cfg["train"]["resume"]["enable"] = False
+    (work / "cfg.yaml").write_text(yaml.safe_dump(cfg))
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", "-m",
+         f"{PORT}.train_detect", "train", str(work / "cfg.yaml")],
+        cwd=str(work), env=env, capture_output=True, text=True, timeout=420)
+    out = {"torchrun_s": time.perf_counter() - t}
+    if proc.returncode != 0 or "Data parallel: rank 0 of 1, node 0 of 1" not in proc.stdout:
+        raise AssertionError(f"torchrun training exited {proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    files = sorted(p.name for p in (work / "checkpoints").iterdir())
+    if files != ["best_model.msgpack", "checkpoint_epoch_0.msgpack"] or proc.stdout.count("Metrics saved to") != 1:
+        raise AssertionError(f"torchrun training wrote {files} and {proc.stdout.count('Metrics saved to')} reports")
+    saved = msgpack_restore((work / "checkpoints" / "checkpoint_epoch_0.msgpack").read_bytes())
+    cfg["train"]["num_epochs"] = 2
+    cfg["train"]["resume"]["enable"] = True
+    record, cwd = {}, os.getcwd()
+    os.chdir(work)
+    try:
+        with traced_trainer(record):
+            t = time.perf_counter()
+            trainer = train_detect.main(config=cfg, device="cuda:0")
+            out["resume_s"] = time.perf_counter() - t
+    finally:
+        os.chdir(cwd)
+    restored = record["load_checkpoint"][0]["state"]
+    got = {"params": restored["variables"]["params"], "batch_stats": restored["variables"]["batch_stats"],
+           "opt_state": restored["opt_state"]}
+    n = 0
+    for part in ("params", "batch_stats", "opt_state"):
+        g, w = dict(tree_leaves(got[part])), dict(tree_leaves(saved[part]))
+        if set(g) != set(w):
+            raise AssertionError(f"restored {part} keys differ from the torchrun checkpoint's")
+        for k, a in w.items():
+            if a is not None and not np.array_equal(np.asarray(g[k]), np.asarray(a)):
+                raise AssertionError(f"restored {part}/{'/'.join(k)} differs from the torchrun checkpoint's")
+            n += a is not None
+    if record["load_checkpoint"][0]["epoch"] != 0 or trainer.step != 4 or int(saved["step"]) != 2:
+        raise AssertionError(f"resume: epoch {record['load_checkpoint'][0]['epoch']}, step {trainer.step}")
+    out.update(restored_arrays_bit_exact=n, steps=trainer.step,
+               validation_b1_launches=[e["b1_launches"] for e in record["evaluate"]])
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"  16d torchrun --standalone --nproc_per_node 1 (multi_host): one epoch in {out['torchrun_s']:.1f} s "
+        f"(process start and build included), one checkpoint and one report written; resumed in this process "
+        f"bit for bit over {n} arrays into epoch 1 ({out['resume_s']:.1f} s), B1 "
+        f"{out['validation_b1_launches']} in its validation")
+    return out
+
+
+def data_parallelism(config, tree_config: dict, tmp: Path) -> dict:
+    """Phase 16."""
+    out = {"world_one_nccl": dp_world_one(config)}
+    out["two_ranks"] = dp_two_ranks(tmp)
+    out["serving_replicas"] = serving_replicas(config)
+    out["torchrun"] = torchrun_training(tree_config, tmp)
+    torch.distributed.destroy_process_group()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3065,6 +3526,14 @@ def main() -> int:
         log(f"  phase 15 took {time.perf_counter() - t:.1f} s")
         log("  " + json.dumps({"aot_profiling": aot}))
 
+        log("phase 16: data parallelism (one NCCL rank, two ranks on one card, two serving replicas, torchrun)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t = time.perf_counter()
+        dp = data_parallelism(config, tree_config, Path(tmp))
+        log(f"  phase 16 took {time.perf_counter() - t:.1f} s")
+        log("  " + json.dumps({"data_parallelism": dp}))
+
     def entry(name, launches, err, t):
         source, replaces = KERNELS[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3100,7 +3569,9 @@ def main() -> int:
              c_in5_max_abs_err=opts["b1_c_in5_max_err"],
              culled_eval_launches=opts["culled_eval"]["launches"]["pointnet_fused"],
              scatter_eval_launches=opts["scatter_eval"]["launches"]["pointnet_fused"],
-             training_data_options_validation_launches=opts["training_data_options"]["b1_launches_per_validation"]),
+             training_data_options_validation_launches=opts["training_data_options"]["b1_launches_per_validation"],
+             data_parallel_serving_launches=dp["serving_replicas"]["two_launches"],
+             torchrun_resume_validation_launches=dp["torchrun"]["validation_b1_launches"]),
         # launches: phase 7, the geometric eval path
         dict(entry("bev_pool_weighted", geo["launches"]["bev_pool_weighted_rows"],
                    pool_err["bev_pool_weighted"], pools["bev_pool_weighted"]),
@@ -3123,4 +3594,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":  # a rank process of phase 16b
+        sys.exit(dp_rank(sys.argv[2]))
     sys.exit(main())

@@ -189,7 +189,7 @@ def test_serve_cli_aot_flags(narrow_config, tmp_path, capsys):
         serve_cli.main(["--aot", "a.npz", "--export-aot", "b.npz"])
     with pytest.raises(SystemExit, match="unpartitioned"):
         serve_cli.main(["--export-aot", "b.npz", "--data-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(SystemExit, match="needs that many devices"):  # no card here
         serve_cli.main(["--aot", "a.npz", "--data-parallel", "2"])
     import yaml
 

@@ -105,9 +105,10 @@ def test_geometric_split_matches_jax(nuscenes_tree, split):
 
 
 def test_unported_options_raise(nuscenes_tree):
-    """Only multi-process sharding (A13) still raises: splat_mode: culled
-    (A10) ships pair plans instead of cells, and num_sweeps > 1 (A8) loads
-    (infos without sweeps read the key sweep alone, as in JAX)."""
+    """No loader option raises any more: splat_mode: culled (A10) ships pair
+    plans instead of cells, num_sweeps > 1 (A8) loads (infos without sweeps
+    read the key sweep alone, as in JAX) and multi-process sharding (A13)
+    strides the epoch."""
     cfg = _config(nuscenes_tree)
     cfg["model"]["bev_fusion"].update(camera_to_bev="geometric", splat_mode="culled")
     sample = port_dataset.NuScenesDataset(split="val", config=cfg)[0]
@@ -115,8 +116,8 @@ def test_unported_options_raise(nuscenes_tree):
     cfg = _config(nuscenes_tree)
     cfg["dataset"]["num_sweeps"] = 3
     assert port_dataset.NuScenesDataset(split="val", config=cfg)[0]["lidar_points"].shape == (256, 4)
-    with pytest.raises(NotImplementedError, match="A13"):
-        port_dataset.DataLoader([], process_index=1, process_count=2)
+    loader = port_dataset.DataLoader(list(range(5)), batch_size=1, process_index=1, process_count=2)
+    assert [list(b) for b in loader._index_batches()] == [[1], [3]]
 
 
 def test_synthetic_dataset_matches_jax():

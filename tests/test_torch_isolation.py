@@ -47,6 +47,8 @@ TOOL_MODULES = (
     "utils.aot", "utils.profiling", "utils.cache", "data.validate", "data_converter", "data_validate",
     "validate_data_with_samples", "ops.preprocess", "ops.targets",
 )
+# data parallelism
+PARALLEL_MODULES = ("parallel", "parallel.distributed", "parallel.mesh", "parallel.zero")
 
 
 def test_port_imports_without_jax():
@@ -58,7 +60,8 @@ def test_port_imports_without_jax():
     imported = set(proc.stdout.splitlines()[-1].split())
     assert len(imported) >= 51  # every module was imported
     assert {
-        f"{PORT}.{m}" for m in TRAINING_MODULES + ENTRY_POINT_MODULES + VARIANT_MODULES + TOOL_MODULES
+        f"{PORT}.{m}"
+        for m in TRAINING_MODULES + ENTRY_POINT_MODULES + VARIANT_MODULES + TOOL_MODULES + PARALLEL_MODULES
     } <= imported
 
 
@@ -81,7 +84,7 @@ def test_config_parsing_matches_jax(config):
         cfg["train"]["gradient_accumulation"] = {"enable": True, "steps": 3}
         train = port_config.TrainSpec.from_config(cfg)
         assert train.mixed_precision and train.grad_accum_steps == 3 and train.loss_weights[2] != 1.0
-    for name in ("DetectorSpec", "CompatFlags", "TrainSpec", "DataSpec"):
+    for name in ("DetectorSpec", "CompatFlags", "TrainSpec", "DataSpec", "ParallelSpec"):
         port = getattr(port_config, name).from_config(cfg)
         ref = getattr(jax_config, name).from_config(cfg)
         assert dataclasses.asdict(port) == dataclasses.asdict(ref), name

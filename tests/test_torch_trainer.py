@@ -91,8 +91,8 @@ def test_train_cli_writes_the_jax_artifacts_and_resumes(nuscenes_tree, tmp_path,
 
 
 def test_cli_refuses_unported_options(nuscenes_tree, tmp_path):
-    for section, key, value, item in (("parallel", "data_parallel", 2, "A13"),
-                                      ("parallel", "multi_host", {"enable": True}, "A13")):
+    for section, key, value, item in (("parallel", "view_parallel", 2, "A13b"),
+                                      ("parallel", "bev_spatial", True, "A13b")):
         cfg = tree_config(tmp_path, nuscenes_tree)
         cfg.setdefault(section, {})[key] = value
         with pytest.raises(NotImplementedError, match=item):

@@ -1,0 +1,263 @@
+"""Processes of the port's data-parallel CPU tests (tests/test_torch_parallel*.py).
+
+`launch(jobs, world)` starts `world` processes of this file over gloo, with
+torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` on a free port),
+runs the named functions of this module in each, in order, and returns
+each rank's list of results. The process group has a timeout and so has
+every process: a hang fails the test, not the suite. `nodes` > 1 lays the
+processes out as torchrun does across nodes (``GROUP_RANK``).
+
+The job functions run in the parent too, without a process group, as the
+single-process reference.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+INIT_TIMEOUT_S = 60.0
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch(jobs: Sequence[Tuple[str, Dict]], world: int = 2, nodes: int = 1, timeout_s: float = 150.0,
+           cwd: Optional[Path] = None, during: Optional[Callable] = None):
+    """Run `jobs` ((function name, kwargs), in order) in `world` processes
+    over gloo; returns each rank's results, and with `during` (called here
+    while the processes run) also its result."""
+    port = free_port()
+    per_node = world // nodes
+    with tempfile.TemporaryDirectory(prefix="torch_parallel_") as tmp:
+        job_path = Path(tmp) / "jobs.pkl"
+        job_path.write_bytes(pickle.dumps(list(jobs)))
+        procs, logs = [], []
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank % per_node),
+                       LOCAL_WORLD_SIZE=str(per_node), GROUP_RANK=str(rank // per_node),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="2",
+                       PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
+            log = open(Path(tmp) / f"rank{rank}.log", "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, str(job_path), str(Path(tmp) / f"out{rank}.pkl")],
+                env=env, stdout=log, stderr=subprocess.STDOUT, cwd=str(cwd or tmp)))
+        try:
+            mine = during() if during is not None else None
+            for p in procs:
+                p.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outputs = []
+        for log in logs:
+            log.seek(0)
+            outputs.append(log.read())
+            log.close()
+        for rank, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {rank} exited {p.returncode}:\n" + outputs[rank][-6000:])
+        ranks = [pickle.loads((Path(tmp) / f"out{rank}.pkl").read_bytes()) for rank in range(world)]
+        return ranks if during is None else (ranks, mine)
+
+
+def _worker(job_path: str, out_path: str) -> None:
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel import maybe_initialize
+
+    maybe_initialize(True, device="cpu", timeout_s=INIT_TIMEOUT_S)
+    jobs = pickle.loads(Path(job_path).read_bytes())
+    results = [globals()[name](**kwargs) for name, kwargs in jobs]
+    Path(out_path).write_bytes(pickle.dumps(results))
+    torch.distributed.destroy_process_group()
+
+
+def parallel_batches(spec, n_steps: int = 3, seed: int = 0) -> List[Dict[str, np.ndarray]]:
+    """Node batches of 4 rows whose halves differ: rows 0-1 (rank 0 of two)
+    hold 1 and 2 boxes and cameras about 0, rows 2-3 (rank 1) 5 and 6 boxes
+    and cameras about 1, so each half's positives and BatchNorm statistics
+    differ from the whole batch's. Float cameras, 9-column boxes, labels
+    -1 on the padded rows."""
+    rng = np.random.RandomState(seed)
+    h, w = spec.camera.image_size
+    out = []
+    for _ in range(n_steps):
+        cams = rng.randn(4, 6, h, w, 3).astype(np.float32)
+        cams[2:] += 1.0
+        lidar = rng.randn(4, spec.lidar.max_points, spec.lidar.input_channels).astype(np.float32)
+        lidar[:, spec.lidar.max_points // 2:] = 0.0
+        radar = rng.randn(4, spec.radar.num_radars, spec.radar.max_points_per_sensor,
+                          spec.radar.input_channels).astype(np.float32)
+        radar[:, :, spec.radar.max_points_per_sensor // 2:] = 0.0
+        boxes = np.zeros((4, 8, 9), np.float32)
+        labels = np.full((4, 8), -1, np.int64)
+        x0, y0, _, x1, y1, _ = spec.bev.pc_range
+        for b, n in enumerate((1, 2, 5, 6)):
+            boxes[b, :n, 0] = rng.uniform(0.9 * x0, 0.9 * x1, n)
+            boxes[b, :n, 1] = rng.uniform(0.9 * y0, 0.9 * y1, n)
+            boxes[b, :n, 2] = rng.uniform(-2, 1, n)
+            boxes[b, :n, 3:6] = rng.uniform(1, 6, (n, 3))
+            boxes[b, :n, 6] = rng.uniform(-3, 3, n)
+            boxes[b, :n, 7:] = rng.randn(n, 2)
+            labels[b, :n] = rng.randint(0, 10, n)
+        out.append({"camera_imgs": cams, "lidar_points": lidar, "radar_points": radar,
+                    "gt_boxes": boxes, "gt_labels": labels})
+    return out
+
+
+# -- jobs -------------------------------------------------------------------
+
+
+def data_group(multi_host: bool = False):
+    """The data group of the launched processes; None without a process
+    group (the reference in the parent)."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel import make_data_group
+
+    if not torch.distributed.is_initialized():
+        return None
+    return make_data_group(multi_host=multi_host)
+
+
+def _record(trainer, losses) -> Dict:
+    """Losses, state (float64) and AdamW first moments of a step."""
+    opt = trainer._full_optimizer()
+    return {
+        "losses": {k: float(v) for k, v in losses.items()},
+        "state": {k: v.detach().double().clone() for k, v in trainer.model.state_dict().items()},
+        "mu": {n: opt.adamw.state[p]["exp_avg"].detach().double().clone()
+               for n, p in trainer.model.named_parameters()},
+    }
+
+
+def train_steps(spec, state, batches, dtype=torch.float64, skip_augmentation: bool = True,
+                shard_optimizer: bool = False, mutant: Optional[str] = None, multi_host: bool = False,
+                checkpoint: Optional[str] = None) -> Dict:
+    """A Trainer of `spec` holding `state`, through the batches (each the
+    node's batch), with check_gradients: one record a step. `mutant`
+    ``"bn"`` takes the BatchNorm statistics of each rank's rows alone,
+    ``"num_pos"`` the focal loss's positives of each rank's rows alone.
+    With `checkpoint`, saves there after the last step and restores it
+    into a fresh Trainer, whose moments end the result."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.config import CompatFlags, TrainSpec
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.models.batch_norm import global_statistics
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import losses as port_losses
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.train.loop import Trainer
+
+    compat = CompatFlags(skip_augmentation=skip_augmentation)
+    group = data_group(multi_host)
+
+    def trainer_of(load):
+        model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding).to(dtype)
+        trainer = Trainer(model, TrainSpec(), compat, check_gradients=True, device="cpu",
+                          process_group=group, shard_optimizer=shard_optimizer).init_state()
+        model.load_state_dict(load)
+        return trainer
+
+    trainer = trainer_of(state)
+    focal = port_losses.focal_loss
+    if mutant == "bn":
+        global_statistics(trainer.model, None)
+    elif mutant == "num_pos":
+        port_losses.focal_loss = lambda *a, group=None, **k: focal(*a, **k)
+    elif mutant is not None:
+        raise ValueError(mutant)
+    try:
+        records = [_record(trainer, trainer.train_step(b)) for b in batches]
+    finally:
+        port_losses.focal_loss = focal
+    out = {"records": records, "moment_bytes": _moment_bytes(trainer.optimizer)}
+    if checkpoint:
+        trainer.save_checkpoint(checkpoint, epoch=0)
+        restored = trainer_of(state)
+        restored.load_checkpoint(checkpoint)
+        out["restored"] = _record(restored, {})
+        out["restored_updates"] = restored.optimizer.updates
+    return out
+
+
+def _moment_bytes(optimizer) -> int:
+    if hasattr(optimizer, "moment_bytes"):
+        return optimizer.moment_bytes()
+    return sum(s[k].numel() * s[k].element_size() for s in optimizer.adamw.state.values()
+               for k in ("exp_avg", "exp_avg_sq"))
+
+
+def process_means(values: Dict[str, float]) -> Dict:
+    """`all_processes_mean` of this rank's values (times its node + 1), the
+    barrier and `is_multi_process`."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel import (
+        all_processes_mean,
+        barrier,
+        is_multi_process,
+        rank_layout,
+    )
+
+    layout = rank_layout()
+    mine = {k: v * (layout.node + 1) for k, v in values.items()}
+    barrier()
+    return {"mean": all_processes_mean(mine), "node": layout.node, "nodes": layout.num_nodes,
+            "multi_process": is_multi_process()}
+
+
+def train_cli(config: Dict, workdir: str) -> Dict:
+    """`train_detect.main(config=config, device="cpu")` in `workdir`: the
+    trainer's final variables and step, the files under `workdir`, and how
+    many checkpoints and metrics reports this process wrote."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch import train_detect
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.train import checkpoint
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.convert import export_jax_variables
+
+    writes = {"checkpoints": 0, "metrics": 0}
+
+    def counted(fn, key):
+        def inner(*args, **kwargs):
+            writes[key] += 1
+            return fn(*args, **kwargs)
+        return inner
+
+    with contextlib.ExitStack() as stack:
+        for module, name, key in ((checkpoint, "save_checkpoint", "checkpoints"),
+                                  (train_detect, "save_and_print_metrics", "metrics")):
+            fn = getattr(module, name)
+            setattr(module, name, counted(fn, key))
+            stack.callback(setattr, module, name, fn)
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        stack.callback(os.chdir, cwd)
+        trainer = train_detect.main(config=copy.deepcopy(config), device="cpu")
+    return {"variables": export_jax_variables(trainer.model), "step": trainer.step, "writes": writes,
+            "files": sorted(str(p.relative_to(workdir)) for p in Path(workdir).rglob("*") if p.is_file())}
+
+
+def serve_batches(config: Dict, samples: List[Dict], devices) -> List:
+    """`InferenceServer(devices=devices)` on the samples, f32."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import InferenceServer
+
+    server = InferenceServer(config=config, batch_size=4, score_threshold=0.0, use_bf16=False,
+                             devices=devices)
+    return [server._run_batch(samples[i:i + 4]) for i in range(0, len(samples), 4)]
+
+
+if __name__ == "__main__":
+    _worker(sys.argv[1], sys.argv[2])
