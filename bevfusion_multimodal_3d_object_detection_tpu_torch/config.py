@@ -711,8 +711,10 @@ class ParallelSpec:
     In the port (`parallel/`): ``data_parallel`` is the number of processes,
     one GPU each, of a single torchrun node; ``multi_host`` spans every
     process of every node, a torchrun node playing the part of a JAX
-    process; ``shard_optimizer`` is ZeRO-1 over them. ``view_parallel`` > 1
-    and ``bev_spatial`` are not ported (ROADMAP A13b). The reference's dead
+    process; ``shard_optimizer`` is ZeRO-1 over the data axis;
+    ``view_parallel`` splits each data index's cameras over that many of
+    them, and ``bev_spatial`` its head's BEV rows (`parallel.view`). The
+    reference's dead
     ``hardware.gpu.distributed`` block turns ``multi_host`` on only when it
     is not configured and a coordinator is resolvable: ``coordinator_address``
     or torchrun's ``MASTER_ADDR`` (the JAX package reads

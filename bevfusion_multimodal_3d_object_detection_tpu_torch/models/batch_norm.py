@@ -13,7 +13,7 @@ with the batch mean and the biased variance, computed in at least f32
 ``momentum=None`` is refused). Eval mode is torch's own forward.
 
 Under data parallelism (`global_statistics`) the batch statistics are the
-global batch's, as a jitted JAX step over a ``'data'`` mesh computes them
+global batch's, as a jitted JAX step over a ``('data', 'view')`` mesh computes them
 (`_GlobalBatchNorm`, an autograd function): the ranks' statistics are
 combined over the group (on CUDA each rank's Welford mean and variance,
 gathered; on the CPU each channel's sum and count, then its sum of squared
@@ -172,13 +172,18 @@ class FlaxBatchNorm3d(_FlaxStatistics, nn.BatchNorm3d):
     """BatchNorm3d over (N, C, D, H, W) with flax's running statistics."""
 
 
-def global_statistics(module: nn.Module, group) -> nn.Module:
+def global_statistics(module: nn.Module, group, camera_group=None) -> nn.Module:
     """Take the train-mode batch statistics of every BatchNorm under
     `module` over the global batch of `group` (a process group; None: each
-    process's own batch again). Returns `module`."""
+    process's own batch again), those under ``module.camera_encoder`` over
+    `camera_group` where one is given: with a view axis the trunk sees
+    distinct cameras on every rank of the world, the rest the rows that a
+    view group shares. Returns `module`."""
     for m in module.modules():
         if isinstance(m, _FlaxStatistics):
             m.group = group
+    if camera_group is not None and hasattr(module, "camera_encoder"):
+        global_statistics(module.camera_encoder, camera_group)
     return module
 
 

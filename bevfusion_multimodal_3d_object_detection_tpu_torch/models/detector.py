@@ -16,6 +16,12 @@ with like:
 
 and the prediction maps come back NHWC; the MLP head gives {'cls', 'box'}.
 Inside, everything is NCHW.
+
+`shard_views` puts the model on a view axis (`parallel.view`): the camera
+trunk runs on this rank's block of cameras when the camera axis divides by
+it (else on every camera, replicated), and with `bev_spatial` the CenterNet
+head runs on this rank's block of BEV rows when ``bev_h`` divides by it (the
+JAX model's ``bev_sharding``); the rest runs replicated on the view group.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from torch import nn
 
 from ..config import DetectorSpec, load_config
+from ..parallel.view import ViewShard
 from .encoders import (
     MultiRadarEncoder,
     PointNetLiDAREncoder,
@@ -39,9 +46,11 @@ from .heads import CenterNetHead, MLPDetectionHead
 
 class MultiModal3DDetector(nn.Module):
     def __init__(self, spec: DetectorSpec = DetectorSpec(),
-                 mask_padding: bool = False, fold_bn: bool = False):
+                 mask_padding: bool = False, fold_bn: bool = False, bev_spatial: bool = False):
         super().__init__()
         self.spec = spec
+        self.bev_spatial = bev_spatial
+        self.view = None  # `shard_views`
         channels = {}
         if spec.use_camera:
             self.camera_encoder = ResNetCameraEncoder(spec.camera, fold_bn=fold_bn)
@@ -82,7 +91,11 @@ class MultiModal3DDetector(nn.Module):
         cam = lidar = radar = None
         if s.use_camera:
             # NHWC views -> NCHW views
-            cam = self.camera_encoder(camera_imgs.permute(0, 1, 4, 2, 3))
+            imgs = camera_imgs.permute(0, 1, 4, 2, 3)
+            if self.view is not None and self.view.splits(imgs.shape[1]):
+                cam = self.view.encode_cameras(self.camera_encoder, imgs)
+            else:
+                cam = self.camera_encoder(imgs)
         if s.use_lidar:
             lidar = self.lidar_encoder(lidar_points)
         if s.use_radar:
@@ -92,10 +105,27 @@ class MultiModal3DDetector(nn.Module):
                                 camera_pairs=camera_pairs)
         else:
             fused = self.fusion(cam, lidar, radar)
-        preds = self.det_head(fused)
+        if self.head_on_rows():
+            # this rank's rows (the halo rows' outputs dropped), then all rows
+            preds = {k: self.view.gather(v[:, :, 1:-1], 2)
+                     for k, v in self.det_head(self.view.rows_with_halo(fused)).items()}
+        else:
+            preds = self.det_head(fused)
         if not s.head_is_centernet:
             return preds
         return {k: v.permute(0, 2, 3, 1) for k, v in preds.items()}
+
+    def shard_views(self, view) -> "MultiModal3DDetector":
+        """Run on `view` (a `parallel.view.ViewShard` or `LocalViews`; None:
+        unsharded again). Returns the model."""
+        self.view = view
+        return self
+
+    def head_on_rows(self) -> bool:
+        """Whether the head runs on this rank's block of BEV rows:
+        `bev_spatial` on a view group whose size divides ``bev_h``."""
+        return (self.bev_spatial and isinstance(self.view, ViewShard) and self.spec.head_is_centernet
+                and self.view.splits(self.spec.bev.bev_h))
 
     def get_config_str(self) -> str:
         s = self.spec

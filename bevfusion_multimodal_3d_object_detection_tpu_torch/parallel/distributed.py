@@ -8,7 +8,8 @@ JAX process: the loader strides the epoch by node (`RankLayout.node`,
 equal row blocks (`parallel.mesh.DataGroup.local_rows`), as ``P('data')``
 splits a JAX process's batch over its devices. Ranks are numbered node by
 node, as torchrun numbers them, so rank r holds rows
-``[r * m, (r + 1) * m)`` of the global batch (`global_rows`).
+``[r * m, (r + 1) * m)`` of the global batch (with a view axis, the ranks
+of a view group hold the same rows: `parallel.mesh`).
 
 - `maybe_initialize` joins the process group behind the config switch, from
   torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
@@ -33,6 +34,7 @@ import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -152,27 +154,24 @@ def is_multi_process(group=None) -> bool:
     return dist.is_initialized() and dist.get_world_size(group) > 1
 
 
-def global_rows(rows: int, group=None) -> slice:
-    """The rows of the global batch that this rank holds when each of the
-    group's ranks holds `rows` (the counterpart of JAX's
-    ``form_global_batch``, which assembles the same global batch)."""
-    rank = dist.get_rank(group) if dist.is_initialized() else 0
-    return slice(rank * rows, (rank + 1) * rows)
-
-
 def all_processes_mean(values: Dict[str, float]) -> Dict[str, float]:
     """The mean over nodes of scalar metrics that each node's ranks hold
-    alike (e.g. each node's validation metrics); identity with one node."""
+    alike (e.g. each node's validation metrics); identity with one node.
+    As the JAX package takes it: each value rounded to float32, one row a
+    node gathered, and ``np.mean`` of the float32 rows."""
     if not dist.is_initialized() or rank_layout().num_nodes == 1:
         return dict(values)
+    layout = rank_layout()
     keys = sorted(values)
     # NCCL takes the tensors on this process's CUDA device
     device = torch.cuda.current_device() if dist.get_backend() == "nccl" else "cpu"
-    local = torch.tensor([float(values[k]) for k in keys], dtype=torch.float64, device=device)
-    dist.all_reduce(local)
-    # every node contributes its value once per rank: divide by the ranks
-    mean = (local / dist.get_world_size()).tolist()
-    return {k: mean[i] for i, k in enumerate(keys)}
+    local = torch.from_numpy(np.asarray([float(values[k]) for k in keys], np.float32)).to(device)
+    rows = local.new_empty(layout.world_size * len(keys))
+    dist.all_gather_into_tensor(rows, local)
+    # each node's row once: its first rank's
+    stacked = rows.view(layout.world_size, len(keys))[::layout.local_world_size].cpu().numpy()
+    mean = np.mean(stacked, axis=0)
+    return {k: float(mean[i]) for i, k in enumerate(keys)}
 
 
 def sum_flat(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:

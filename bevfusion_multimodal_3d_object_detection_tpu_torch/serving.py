@@ -21,7 +21,10 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/serving.py:41-648``:
   replica of the model per entry, its weights placed once, each on its own
   CUDA stream; a coalesced batch is cut into equal contiguous parts, the
   parts launched back to back, one a replica, and their results gathered in
-  order. A device may repeat (two replicas on one card);
+  order. A device may repeat (two replicas on one card). A 2-D grid
+  (rows: replicas; columns: the view axis, ``:67-77``) splits the cameras
+  of a row's part over the row's devices, a trunk replica each, and
+  gathers the features on the row's first device (`parallel.LocalViews`);
 - `make_http_server`: a stdlib ThreadingHTTPServer around a server
   (``/healthz``, ``/stats``, ``POST /infer`` in npz or JSON).
 
@@ -52,6 +55,7 @@ from .config import CompatFlags, DetectorSpec, PostProcessSpec, load_config
 from .models.detector import MultiModal3DDetector
 from .ops.decode import decode_centernet_predictions, nms_bev
 from .ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, normalize_images
+from .parallel.view import LocalViews
 from .utils.convert import load_jax_variables
 from .utils.device import resolve_device
 from .utils.fold_bn import fold_camera_variables
@@ -81,12 +85,17 @@ class InferenceServer:
     ):
         if devices is not None and device is not None:
             raise ValueError("pass device or devices, not both")
-        self.devices = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
+        # rows: replicas (the data axis); columns: the view axis
+        grid = [[resolve_device(d) for d in (row if isinstance(row, (list, tuple)) else [row])]
+                for row in (devices or [device])]
+        if len({len(row) for row in grid}) != 1:
+            raise ValueError(f"every row of the devices grid needs as many devices: {devices}")
+        self.devices = [row[0] for row in grid]
         self.device = self.devices[0]
         n = len(self.devices)
         if batch_size % n:
             raise ValueError(f"batch_size {batch_size} must divide by the mesh's data axis ({n}) for sharded serving")
-        if aot_path is not None and n > 1:
+        if aot_path is not None and (n > 1 or len(grid[0]) > 1):
             raise ValueError("aot_path and mesh are mutually exclusive: the AOT artifact was traced unpartitioned")
         self.config = config if config is not None else load_config(config_path)
         self.spec = DetectorSpec.from_config(self.config)
@@ -129,6 +138,9 @@ class InferenceServer:
                  torch.cuda.Stream(dev) if dev.type == "cuda" else None)
                 for i, dev in enumerate(self.devices)
             ]
+        if len(grid[0]) > 1 and self.spec.use_camera:
+            for (replica, _, _), row in zip(self.replicas, grid):
+                replica.shard_views(LocalViews(replica.camera_encoder, row))
 
         if self.compat.eval_decode_voxel_0512:
             self.voxel_size = 0.512  # Q3

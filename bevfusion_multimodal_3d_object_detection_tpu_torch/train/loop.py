@@ -41,6 +41,17 @@ clip and ``grad_norm`` see the summed gradient. With ``shard_optimizer``
 and more than one rank the AdamW moments are sharded (`parallel.zero`).
 Validation decodes each rank's rows and gathers them to the node's first
 rank, which computes the metrics of the node's share of the split.
+
+With a view axis (``parallel.view_parallel`` > 1, `parallel.view`) the
+ranks of a view group hold the same rows: the camera trunk runs on each
+rank's block of cameras and, under ``bev_spatial``, the head on its block of
+BEV rows. Each gradient is counted once: those of the camera trunk and the
+row-block head, computed from the rank's own part, are summed over the
+world, and every other gradient, the data row's whole on each rank of the
+view group, over the data axis alone; so are the loss normalizers and the
+logged losses. The trunk's BatchNorm statistics are the world's, the
+others' the data axis's. ZeRO-1 shards the moments over the data axis and
+replicates them over the view axis, as JAX shards them over ``'data'``.
 """
 
 from __future__ import annotations
@@ -62,7 +73,8 @@ from ..ops.decode import decode_centernet_predictions
 from ..ops.losses import centernet_loss, detection_loss, prepare_mlp_targets
 from ..ops.preprocess import normalize_images
 from ..ops.targets import prepare_centernet_targets
-from ..parallel.distributed import barrier, global_rows, sum_flat
+from ..parallel.distributed import barrier, sum_flat
+from ..parallel.view import partial_modules
 from ..utils.device import resolve_device
 
 if TYPE_CHECKING:
@@ -291,8 +303,14 @@ class TrainStep:
                  augment: Optional[AugmentSpec] = None, data: Optional["DataGroup"] = None):
         self.model, self.optimizer, self.device = model, optimizer, device
         self.data = data
-        self.group = None if data is None else data.group
+        # the data axis: the loss normalizers and the replicated gradients
+        self.group = None if data is None else data.data_axis
+        self.world = None if data is None else data.group
+        if data is not None:
+            model.shard_views(data.view_shard())
         global_statistics(model, self.group)
+        # the modules whose gradients are this rank's part (`view_parts`)
+        self.partial: List[torch.nn.Module] = []
         self.train_spec, self.compat = train_spec, compat
         self.check_gradients = check_gradients
         self.augment = None if compat.skip_augmentation else (augment or AugmentSpec())  # Q14
@@ -318,11 +336,11 @@ class TrainStep:
         boxes = _tensor(batch["gt_boxes"], device)
         rows = boxes.shape[0]
         # the draws of the global batch (every rank's rows), this rank's taken
-        total = rows if self.data is None else rows * self.data.size
+        total = rows if self.data is None else rows * self.data.n_data
         draws = draw_augmentation(step_generator(self.train_spec.seed, self.step), self.augment, total,
                                   None if radar is None else (total,) + tuple(radar.shape[1:]))
         if self.data is not None:
-            draws = draws.rows(global_rows(rows, self.group))
+            draws = draws.rows(self.data.global_rows(rows))
         cams, lidar, radar, boxes = augment_modalities(draws, cams, lidar, radar, boxes, self.augment,
                                                        geometry_frozen=self.geometry_frozen)
         out = dict(batch, gt_boxes=boxes)
@@ -331,11 +349,25 @@ class TrainStep:
                 out[key] = value
         return out
 
+    def view_parts(self, batch: Dict) -> None:
+        """Under a view axis: which modules this rank computes a part of
+        (`parallel.view.partial_modules`) for the batch's cameras, and the
+        BatchNorm groups that follow (the trunk's over the world when it
+        runs on a block of cameras)."""
+        if self.data is None or self.data.n_view == 1:
+            return
+        cams = batch.get("camera_imgs")
+        self.partial = partial_modules(self.model, 0 if cams is None else int(np.shape(cams)[1]))
+        trunk = getattr(self.model, "camera_encoder", None)
+        in_part = any(m is trunk for m in self.partial)
+        global_statistics(self.model, self.group, camera_group=self.world if in_part else None)
+
     def forward(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The model's predictions in train mode (bf16 autocast under
         ``mixed_precision``)."""
         spec, device = self.model.spec, self.device
         self.model.train()
+        self.view_parts(batch)
         autocast = (torch.autocast(device.type, dtype=torch.bfloat16)
                     if self.train_spec.mixed_precision else contextlib.nullcontext())
         with autocast:
@@ -364,10 +396,21 @@ class TrainStep:
 
     def gradients(self, total_loss: torch.Tensor) -> List[torch.Tensor]:
         """The gradient of each trained parameter; one the loss does not
-        reach is zero, as in JAX. Under a data group, summed over it."""
+        reach is zero, as in JAX. Under a data group, summed over it: over
+        the world for the modules of `partial`, over the data axis for the
+        others."""
         grads = torch.autograd.grad(total_loss, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
-        return grads if self.group is None else sum_flat(grads, self.group)
+        if self.group is None:
+            return grads
+        part = {id(p) for m in self.partial for p in m.parameters()}
+        out = list(grads)
+        for group, idx in ((self.world, [i for i, p in enumerate(self.params) if id(p) in part]),
+                           (self.group, [i for i, p in enumerate(self.params) if id(p) not in part])):
+            if idx:
+                for i, g in zip(idx, sum_flat([grads[i] for i in idx], group)):
+                    out[i] = g
+        return out
 
     def update(self, losses: Dict[str, torch.Tensor], grads: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One optimizer update; returns the detached loss dict (with
@@ -483,11 +526,12 @@ class Trainer:
         self.augment = augment
         self.device = resolve_device(device)
         self.data = process_group
-        self.shard_optimizer = bool(shard_optimizer and process_group is not None and process_group.size > 1)
+        self.shard_optimizer = bool(shard_optimizer and process_group is not None and process_group.n_data > 1)
         if self.shard_optimizer:
             from ..parallel.zero import ZeroOptimizer
 
-            self.optimizer = ZeroOptimizer(train_spec, compat, steps_per_epoch, process_group.group)
+            # sharded over the data axis, replicated over the view axis
+            self.optimizer = ZeroOptimizer(train_spec, compat, steps_per_epoch, process_group.data_axis)
         else:
             self.optimizer = make_optimizer(train_spec, compat, steps_per_epoch)
         self.train_step: Optional[TrainStep] = None
@@ -584,10 +628,11 @@ class Trainer:
             if data is None:
                 decoded = self.eval_step(batch)
             else:
-                # each rank decodes its rows of the batch, padded to split
-                # evenly by repeating the last row (as the JAX Trainer pads
-                # for its mesh), and the node's first rank gets them all
-                pad = (-n) % data.node_size
+                # each data index decodes its rows of the batch (its view
+                # group together), padded to split evenly by repeating the
+                # last row (as the JAX Trainer pads for its mesh), and the
+                # node's first rank gets them all
+                pad = (-n) % data.node_blocks
                 if pad:
                     batch = {k: np.concatenate([v] + [v[-1:]] * pad) if isinstance(v, np.ndarray) else v
                              for k, v in batch.items()}

@@ -36,8 +36,13 @@ node, each node reading its strided share of the epoch, the global batch
 (ZeRO-1). The process group is NCCL on CUDA and gloo on the CPU. Only the
 global rank 0 writes the per-step log, ``metrics_output.txt`` and the
 checkpoints; with several nodes the scalar metrics are averaged over them.
-Not ported: ``view_parallel`` > 1 and ``bev_spatial`` (ROADMAP A13b) and
-the orbax checkpoint backends, which raise.
+``view_parallel: V`` adds the camera-view axis: ``data_parallel x V``
+processes a node (with ``multi_host``, ``world / V`` data indices), the
+cameras of a data index's rows split over its V ranks, and with
+``bev_spatial`` the head's BEV rows too (`parallel.view`); as in the JAX
+CLI, ``bev_spatial`` acts only with V > 1, and where ``bev_h`` does not
+divide by V it warns and is skipped. Not ported: the orbax checkpoint
+backends, which raise.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ import torch
 from .config import CompatFlags, DataSpec, DetectorSpec, ParallelSpec, PostProcessSpec, TrainSpec, load_config
 from .data.dataset import DataLoader, NuScenesDataset, collate_fn
 from .models.detector import MultiModal3DDetector
-from .parallel import A13B, all_processes_mean, make_data_group, maybe_initialize, rank_layout
+from .parallel import all_processes_mean, make_data_group, maybe_initialize, rank_layout
 from .train.checkpoint import is_committed_checkpoint, latest_checkpoint
 from .train.loop import Trainer, with_data_widths
 from .utils.cache import enable_compilation_cache
@@ -61,9 +66,7 @@ from .utils.metrics import save_and_print_metrics
 from .utils.profiling import profile_trace
 
 
-def _refuse_unported(config: Dict, par: ParallelSpec) -> None:
-    if par.view_parallel > 1 or par.bev_spatial:
-        raise NotImplementedError(A13B)
+def _refuse_unported(config: Dict) -> None:
     backend = TrainSpec.from_config(config).ckpt_backend
     if backend != "msgpack":
         raise NotImplementedError(
@@ -99,7 +102,7 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
     if config is None:
         config = load_config(config_path or "configs/base.yaml")
     par = ParallelSpec.from_config(config)
-    _refuse_unported(config, par)
+    _refuse_unported(config)
     spec = DetectorSpec.from_config(config)
     train_spec = TrainSpec.from_config(config)
     data_spec = DataSpec.from_config(config)
@@ -113,19 +116,32 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
             "serialize cross-host optimizer shards"
         )
     group = None
-    if maybe_initialize(par.multi_host or par.data_parallel > 1, par.coordinator_address, par.num_processes,
-                        par.process_id, device=device):
+    if maybe_initialize(par.multi_host or par.data_parallel > 1 or par.view_parallel > 1, par.coordinator_address,
+                        par.num_processes, par.process_id, device=device):
         group = make_data_group(par.data_parallel, par.view_parallel, multi_host=par.multi_host)
     elif rank_layout().world_size > 1:
         raise ValueError(
-            f"{rank_layout().world_size} processes run, but parallel.data_parallel is 1 and parallel.multi_host "
-            "is off: each would train alone and write the same files"
+            f"{rank_layout().world_size} processes run, but parallel.data_parallel and view_parallel are 1 and "
+            "parallel.multi_host is off: each would train alone and write the same files"
         )
+    bev_spatial = False
+    if group is not None and par.bev_spatial and group.n_view > 1:
+        # root train_detect.py:121-137: the BEV rows over the view axis
+        if spec.bev.bev_h % group.n_view == 0:
+            bev_spatial = True
+        else:
+            print(
+                f"Warning: parallel.bev_spatial needs bev_h ({spec.bev.bev_h}) divisible by view_parallel "
+                f"({group.n_view}); skipping the spatial constraint"
+            )
     is_main = group is None or group.rank == 0
     node, nodes = (0, 1) if group is None else (group.layout.node, group.layout.num_nodes)
     print(f"Model: {spec.modality_string()} / {spec.fusion_type} / {spec.detection_head}")
     if group is not None:
         print(f"Data parallel: rank {group.rank} of {group.size}, node {node} of {nodes}")
+        if group.n_view > 1:
+            print(f"View parallel: data index {group.data_index} of {group.n_data}, view {group.view_index} of "
+                  f"{group.n_view}{', BEV rows split' if bev_spatial else ''}")
 
     # uint8 wire: images ship as raw bytes and are normalized on the device
     train_ds = NuScenesDataset(data_root=data_spec.data_root, split="train", config=config,
@@ -144,7 +160,8 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
 
     # the JAX CLI traces its init from a batch: the LiDAR width is the data's
     sample = collate_fn([train_ds[0]])
-    model = MultiModal3DDetector(with_data_widths(spec, sample), mask_padding=not compat.unmasked_point_padding)
+    model = MultiModal3DDetector(with_data_widths(spec, sample), mask_padding=not compat.unmasked_point_padding,
+                                 bev_spatial=bev_spatial)
     trainer = Trainer(
         model, train_spec, compat, steps_per_epoch=len(train_loader),
         check_gradients=(config.get("debug", {}) or {}).get("check_gradients", False),

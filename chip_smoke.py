@@ -203,6 +203,26 @@ Phases (any failure raises and the script exits non-zero):
    torch.distributed.run --standalone --nproc_per_node 1` with multi_host on
    phase 11's tree for one epoch (one checkpoint, one report), then resumed
    in this process bit for bit against that checkpoint.
+17. the camera-view axis and BEV-spatial partitioning: (a) two rank
+   processes (this script with --view-rank) on cuda:0 over gloo, laid out
+   as (data 1, view 2) with bev_spatial: each runs the camera trunk on 3
+   of the 6 cameras (the features all-gathered) and the CenterNet head on
+   25 of the 50 BEV rows with a halo row each side (the maps all-gathered).
+   One float64 train step of base.yaml at 2 rows, from the plain step's
+   state, held to the one-process plain step at phase 9's limits, and three
+   mutants shown to exceed them (the trunk's BatchNorm statistics of each
+   rank's cameras alone, the replicated gradients summed over the world,
+   no halo rows); the f32 step time through the host-copied collectives
+   (no scaling figure); (b) the f32 eval step (TF32 off, 2 rows, O(1) head
+   weights), pseudo and geometric with the pallas splat, on the view
+   ranks: B1 (2) and B2 (1 geometric) launches counted from 0 around one
+   step on each rank, the maps and the decoded outputs held to the
+   unsharded model on one device at 1e-4 of each output's scale, and the
+   step times; (c) `InferenceServer(devices=[[cuda:0, cuda:0]])`, one
+   replica with its cameras split over a row of two devices, at batch 8,
+   bf16, uint8 cameras, on phase 4's 19 requests, B1 counted (2 a batch),
+   the answers held to one device's at batch 8 at scores 1e-4 and boxes
+   1e-3, and the batch latency beside one device's.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.
@@ -3009,15 +3029,17 @@ def step_record(step, model, losses) -> dict:
 
 
 def dp_train_step(config, run_spec, group=None, mutant=None, optimizer=None, device=None,
-                  dtype=torch.float32):
+                  dtype=torch.float32, bev_spatial=False):
     """A train step of base.yaml's model (seed 10) in `dtype`, data-parallel
-    over `group` when given; `mutant` "bn" takes each rank's BatchNorm
-    statistics alone ("num_pos": `mutated_losses`)."""
+    over `group` when given (its head on BEV row blocks with `bev_spatial`
+    and a view axis); `mutant` "bn" takes each rank's BatchNorm statistics
+    alone ("num_pos": `mutated_losses`)."""
     from bevfusion_multimodal_3d_object_detection_tpu_torch.models.batch_norm import global_statistics
 
     spec, compat = DetectorSpec.from_config(config), CompatFlags.from_config(config)
     g = torch.Generator().manual_seed(10)
-    model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding).init_weights(g).to(dtype)
+    model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding,
+                                 bev_spatial=bev_spatial).init_weights(g).to(dtype)
     step = make_train_step(model, optimizer or make_optimizer(run_spec, compat), run_spec, compat,
                            check_gradients=True, device=device, process_group=group)
     if mutant == "bn":
@@ -3069,13 +3091,14 @@ def share_from_rank0(step, updates: int) -> None:
         torch.distributed.broadcast(t, src=0)
 
 
-def lockstep(config, run_spec, batch, n: int, group, device=None, rank: int = 0, dtype=torch.float32) -> tuple:
+def lockstep(config, run_spec, batch, n: int, group, device=None, rank: int = 0, dtype=torch.float32,
+             bev_spatial=False) -> tuple:
     """`n` steps of the data-parallel step and the plain step (rank 0 only),
     each data-parallel step from the plain step's state before it (phase 9's
     scheme: the runs do not drift apart on rounding). Returns the two runs'
     records (rank 0) and the data-parallel step."""
     plain = dp_train_step(config, run_spec, device=device, dtype=dtype) if rank == 0 else None
-    dp = dp_train_step(config, run_spec, group, device=device, dtype=dtype)
+    dp = dp_train_step(config, run_spec, group, device=device, dtype=dtype, bev_spatial=bev_spatial)
     got, want = [], []
     for _ in range(n):
         updates = 0
@@ -3262,23 +3285,22 @@ def dp_rank(job_path: str) -> int:
     return 0
 
 
-def dp_two_ranks(tmp: Path) -> dict:
-    """16b: two rank processes at 2 rows each (gloo on cuda:0; NCCL on two
-    cards where there are two) against one process at 4."""
-    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
-    job = tmp / "dp_job.json"
-    job.write_text(json.dumps({"backend": backend, "out": str(tmp / "dp_out.json")}))
+def rank_processes(flag: str, job: dict, tmp: Path, what: str, timeout_s: float = 420.0) -> list:
+    """Two processes of this script (``flag`` JOB) laid out by torchrun's
+    environment on a free port, each writing ``rank{r}.json`` beside
+    ``job["out"]``; their results, rank by rank."""
+    job_path = tmp / f"{flag.strip('-')}_job.json"
+    job_path.write_text(json.dumps(job))
     port = free_port()
     procs = []
-    t = time.perf_counter()
     for rank in range(2):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2",
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                    PYTHONPATH=str(Path(__file__).resolve().parent))
-        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(job)],
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag, str(job_path)],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
     try:
-        outs = [p.communicate(timeout=420)[0] for p in procs]
+        outs = [p.communicate(timeout=timeout_s)[0] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3286,8 +3308,16 @@ def dp_two_ranks(tmp: Path) -> dict:
                 p.wait()
     for rank, (p, o) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            raise AssertionError(f"16b rank {rank} exited {p.returncode}:\n{o[-6000:]}")
-    res = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+            raise AssertionError(f"{what} rank {rank} exited {p.returncode}:\n{o[-6000:]}")
+    return [json.loads(Path(job["out"]).with_name(f"rank{r}.json").read_text()) for r in range(2)]
+
+
+def dp_two_ranks(tmp: Path) -> dict:
+    """16b: two rank processes at 2 rows each (gloo on cuda:0; NCCL on two
+    cards where there are two) against one process at 4."""
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    t = time.perf_counter()
+    res = rank_processes("--dp-rank", {"backend": backend, "out": str(tmp / "dp_out.json")}, tmp, "16b")
     out = dict(res[0], wall_s=time.perf_counter() - t, rank1_step_ms=res[1]["step_ms"])
     zero = (f"ZeRO-1's first step vs plain DP's: worst share of each limit {json.dumps(out['zero_vs_dp'])}, "
             f"{out['zero_moment_bytes'] / 2 ** 20:.1f} MiB of float64 moments a rank, "
@@ -3416,6 +3446,227 @@ def data_parallelism(config, tree_config: dict, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the camera-view axis and BEV-spatial partitioning
+# ---------------------------------------------------------------------------
+
+VIEW_MUTANTS = ("view_bn", "replicated_world", "halo")
+
+
+@contextlib.contextmanager
+def view_mutant(name):
+    """A view-parallel step gone wrong in one way: "view_bn" takes the
+    camera trunk's BatchNorm statistics of each view rank's cameras alone,
+    "replicated_world" sums every gradient over the world (the replicated
+    ones counted once a view rank), "halo" gives the row-block head zero
+    rows where its neighbours' boundary rows belong. None: as it is."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel import view as port_view
+
+    undo = []
+
+    def patch(owner, attr, value):
+        undo.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, value)
+
+    if name == "view_bn":
+        stats = train_loop.global_statistics
+        patch(train_loop, "global_statistics", lambda module, group, camera_group=None: stats(module, group))
+    elif name == "replicated_world":
+        patch(train_loop, "partial_modules", lambda model, n_cameras: list(model.children()))
+    elif name == "halo":
+        rows = port_view.ViewShard.rows_with_halo
+
+        def no_halo(self, x):
+            y = rows(self, x).clone()
+            y[:, :, 0] = 0
+            y[:, :, -1] = 0
+            return y
+
+        patch(port_view.ViewShard, "rows_with_halo", no_halo)
+    elif name is not None:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        for owner, attr, value in reversed(undo):
+            setattr(owner, attr, value)
+
+
+def view_eval_batch(spec, rng: np.random.RandomState, b: int, plans=None) -> dict:
+    """`b` rows of f32 cameras, LiDAR and radar points (and the geometric
+    path's plans)."""
+    h, w = spec.camera.image_size
+    return collate_fn([{
+        "camera_imgs": rng.randn(6, h, w, 3).astype(np.float32),
+        "lidar_points": lidar_points(rng, 2, spec.lidar.max_points)[0],
+        "radar_points": radar_points(rng, spec.radar.num_radars, spec.radar.max_points_per_sensor),
+        **(plans or {}),
+    } for _ in range(b)])
+
+
+def view_eval(config, group, rank: int, device) -> dict:
+    """17b: the f32 eval step (TF32 off) of a seeded base.yaml model with
+    O(1) head weights (as phase 3), pseudo and geometric with the pallas
+    splat, on this rank's view shard with the head on BEV row blocks, at 2
+    rows; B1 and B2 counted from 0 around one step; rank 0 holds the maps
+    and the decoded outputs to the unsharded model on one device at 1e-4
+    of each output's scale. Both ranks time the step."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel import barrier
+
+    out = {}
+    for name, cfg in (("pseudo", config), ("geometric", geometric_config(config))):
+        spec, compat = DetectorSpec.from_config(cfg), CompatFlags.from_config(cfg)
+        g = torch.Generator().manual_seed(17)
+        model = randomize_stats(MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding,
+                                                     bev_spatial=True).init_weights(g), g)
+        with torch.no_grad():
+            for m in model.det_head.modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=g)
+        model = model.eval().to(device)
+        one = copy.deepcopy(model) if rank == 0 else None
+        model.shard_views(group.view_shard())
+        batch = view_eval_batch(spec, np.random.RandomState(18), 2, camera_plan_inputs(spec) if name == "geometric" else None)
+        step = make_eval_step(model, compat, device=device)
+        args = (train_loop._model_inputs(spec, batch, torch.device(device), torch.float32),
+                train_loop._model_kwargs(spec, batch, torch.device(device)))
+        step(batch)  # warm-up
+        torch.cuda.synchronize()
+        counters = (pf.pointnet_fused, bp.bev_pool_weighted_rows)
+        for k in counters:
+            k.launches = 0
+        got = step(batch)
+        torch.cuda.synchronize()
+        res = {"launches": {k.__name__: k.launches for k in counters}, "head_on_rows": model.head_on_rows()}
+        with torch.inference_mode():
+            maps = model(*args[0], **args[1])
+        res["step_ms"] = timed_steps({"eval": step}, batch)["eval"]
+        if res["launches"] != {"pointnet_fused": 2, "bev_pool_weighted_rows": int(name == "geometric")}:
+            raise AssertionError(f"17b {name}: launches {res['launches']} in one eval step")
+        if rank == 0:
+            want = make_eval_step(one, compat, device=device)(batch)
+            with torch.inference_mode():
+                want_maps = one(*args[0], **args[1])
+            res["maps"] = output_errors({k: v.float().cpu() for k, v in maps.items()},
+                                        {k: v.float().cpu() for k, v in want_maps.items()}, f"17b {name} maps")
+            res["decoded"] = output_errors({k: v.float().cpu() for k, v in got.items()},
+                                           {k: v.float().cpu() for k, v in want.items()}, f"17b {name} decoded")
+            del one, want, want_maps
+        barrier()
+        out[name] = res
+        del model, step, maps, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def view_rank(job_path: str) -> int:
+    """17's rank: two processes on cuda:0 over gloo laid out as (data 1,
+    view 2), each running the camera trunk on 3 of the 6 cameras and the
+    head on 25 of the 50 BEV rows (bev_spatial). (a) one float64 train step
+    of base.yaml at 2 rows, from rank 0's plain step's state, held by rank
+    0 to that plain step at phase 9's limits, and each of
+    `view_mutant`'s three mutants' first step shown to exceed them; the f32
+    step time (TF32 off); (b) `view_eval`. Writes a JSON result."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel import barrier, make_data_group, maybe_initialize
+
+    job = json.loads(Path(job_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, device = int(os.environ["RANK"]), "cuda:0"
+    torch.cuda.set_device(device)
+    maybe_initialize(True, backend="gloo", device=device, timeout_s=300)
+    group = make_data_group(n_data=1, n_view=2)
+    config = load_config("configs/base.yaml")
+    spec, ts = DetectorSpec.from_config(config), TrainSpec.from_config(config)
+    batch = train_batch(spec, np.random.RandomState(9), 2, ts.max_objects, 40)
+    out = {"device": device}
+    with torch.cuda.device(device):
+        f64 = dict(device=device, dtype=torch.float64, bev_spatial=True)
+        got, want, step = lockstep(config, ts, batch, 1, group, rank=rank, **f64)
+        out["head_on_rows"] = step.model.head_on_rows()
+        out["partial_modules"] = sorted(n for n, m in step.model.named_children() if any(m is p for p in step.partial))
+        del step
+        mutants = {}
+        for m in VIEW_MUTANTS:
+            with view_mutant(m):
+                mstep = dp_train_step(config, ts, group, **f64)
+                mutants[m] = step_record(mstep, mstep.model, mstep(batch))
+            del mstep
+        torch.cuda.empty_cache()
+        step = dp_train_step(config, ts, group, device=device, bev_spatial=True)
+        step(batch)  # warm-up
+        out["step_ms"] = timed_steps({"view": step}, batch)["view"]
+        del step
+        torch.cuda.empty_cache()
+        out["eval"] = view_eval(config, group, rank, device)
+        barrier()
+        if rank == 0:
+            out["worst_share_of_limits"] = steps_agree(got, want, ts.learning_rate, "view ranks vs one")
+            for m, rec in mutants.items():
+                worst, failures = step_errors(rec, want[0], None, ts.learning_rate, f"{m} mutant", 1e-4)
+                if not failures:
+                    raise AssertionError(f"the {m} mutant passed the limits: {worst}")
+                out[f"{m}_mutant_worst"] = worst
+    Path(job["out"]).with_name(f"rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def view_serving(config) -> dict:
+    """17c: `InferenceServer(devices=[[cuda:0, cuda:0]])` (one replica, its
+    cameras split over a row of two devices) at batch 8, bf16, uint8
+    cameras, on phase 4's 19 requests, B1 counted (2 a batch) and the
+    answers held to one device's at the same batch at scores 1e-4 and
+    boxes 1e-3; the batch latency beside one device's."""
+    kw = dict(config=config, batch_size=8, max_delay_ms=20.0, score_threshold=0.0, use_bf16=True, fold_bn=True)
+    servers = {"one": InferenceServer(**kw), "grid": InferenceServer(devices=[["cuda:0", "cuda:0"]], **kw)}
+    rng = np.random.RandomState(3)
+    samples = [dict(s, camera_imgs=rng.randint(0, 256, np.shape(s["camera_imgs"]), np.uint8))
+               for s in make_samples(servers["one"].spec, rng, 4)]
+    answers, out = {}, {}
+    for name, server in servers.items():
+        with server:
+            batches = server.stats["batches"]
+            answers[name], out[f"{name}_launches"] = served_requests(server, samples)
+            out[f"{name}_batches"] = server.stats["batches"] - batches
+    if out["grid_launches"] != 2 * out["grid_batches"]:
+        raise AssertionError(f"the grid server launched B1 {out['grid_launches']} times in {out['grid_batches']} batches")
+    out["bit_equal"] = detections_agree(answers["grid"], answers["one"], "1x2 grid vs one device")
+    out["max_score_diff"] = max(float(np.abs(by_position(g)["scores"] - by_position(w)["scores"]).max())
+                                for g, w in zip(answers["grid"], answers["one"]))
+    out["batch_latency_ms"] = batch_latency_ms(servers, [samples[0]] * 8)
+    del servers
+    torch.cuda.empty_cache()
+    log(f"  17c 1x2 grid on cuda:0: 19 requests in {out['grid_batches']} batches, B1 {out['grid_launches']} "
+        f"launches; against one device at batch 8 scores differ by up to {out['max_score_diff']:.3g} (bit-equal "
+        f"{out['bit_equal']}); batch latency {out['batch_latency_ms']['grid']:.2f} ms vs "
+        f"{out['batch_latency_ms']['one']:.2f} ms on one device (uint8, median of 8, in turns) [{card()}]")
+    return out
+
+
+def view_parallelism(tmp: Path) -> dict:
+    """Phase 17."""
+    config = load_config("configs/base.yaml")
+    work = tmp / "view"
+    work.mkdir(exist_ok=True)
+    t = time.perf_counter()
+    res = rank_processes("--view-rank", {"out": str(work / "view_out.json")}, work, "17", timeout_s=600)
+    out = dict(res[0], wall_s=time.perf_counter() - t, rank1_step_ms=res[1]["step_ms"],
+               rank1_eval={k: {"launches": v["launches"], "step_ms": v["step_ms"]} for k, v in res[1]["eval"].items()})
+    ev = out["eval"]
+    log(f"  17a two view ranks (gloo, cuda:0; 3 cameras and 25 BEV rows a rank; modules of a rank's part "
+        f"{out['partial_modules']}) at 2 rows vs one process, a float64 step: worst share of each limit "
+        f"{json.dumps(out['worst_share_of_limits'])}; mutants over the limits: "
+        + ", ".join(f"{m} {max(out[f'{m}_mutant_worst'].values()):.3g}" for m in VIEW_MUTANTS)
+        + f"; f32 step {out['step_ms']:.1f} ms (host-copied gloo collectives, no scaling figure) [{card()}]")
+    for name, r in ev.items():
+        worst = max(e["max_abs_err"] / e["scale"] for part in ("maps", "decoded") for e in r[part].values())
+        log(f"  17b {name} f32 eval step on the view ranks (2 rows): {r['step_ms']:.1f} ms, launches "
+            f"{r['launches']} a step; worst error {worst:.3g} of an output's scale vs one device [{card()}]")
+    out["serving"] = view_serving(config)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3534,6 +3785,13 @@ def main() -> int:
         log(f"  phase 16 took {time.perf_counter() - t:.1f} s")
         log("  " + json.dumps({"data_parallelism": dp}))
 
+        log("phase 17: the camera-view axis and BEV-spatial partitioning (two view ranks on one card, a 1x2 "
+            "serving grid)")
+        t = time.perf_counter()
+        view = view_parallelism(Path(tmp))
+        log(f"  phase 17 took {time.perf_counter() - t:.1f} s")
+        log("  " + json.dumps({"view_parallelism": view}))
+
     def entry(name, launches, err, t):
         source, replaces = KERNELS[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3571,10 +3829,16 @@ def main() -> int:
              scatter_eval_launches=opts["scatter_eval"]["launches"]["pointnet_fused"],
              training_data_options_validation_launches=opts["training_data_options"]["b1_launches_per_validation"],
              data_parallel_serving_launches=dp["serving_replicas"]["two_launches"],
-             torchrun_resume_validation_launches=dp["torchrun"]["validation_b1_launches"]),
+             torchrun_resume_validation_launches=dp["torchrun"]["validation_b1_launches"],
+             view_parallel_launches={"eval_step_" + k: [v["launches"]["pointnet_fused"],
+                                                        view["rank1_eval"][k]["launches"]["pointnet_fused"]]
+                                     for k, v in view["eval"].items()} | {
+                 "serving_grid": view["serving"]["grid_launches"]}),
         # launches: phase 7, the geometric eval path
         dict(entry("bev_pool_weighted", geo["launches"]["bev_pool_weighted_rows"],
                    pool_err["bev_pool_weighted"], pools["bev_pool_weighted"]),
+             view_parallel_launches=[view["eval"]["geometric"]["launches"]["bev_pool_weighted_rows"],
+                                     view["rank1_eval"]["geometric"]["launches"]["bev_pool_weighted_rows"]],
              **{k: pools["bev_pool_weighted"][k] for k in (
                  "slice_channels", "blocks", "blocks_per_sm", "ms_6_rows", "slice_channels_6_rows", "blocks_6_rows")}),
         # no model path calls B3 (as in the JAX package): its count stays 0
@@ -3596,4 +3860,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":  # a rank process of phase 16b
         sys.exit(dp_rank(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--view-rank":  # a rank process of phase 17
+        sys.exit(view_rank(sys.argv[2]))
     sys.exit(main())

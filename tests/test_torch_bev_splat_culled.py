@@ -27,6 +27,7 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.convert import loa
 from chip_smoke import ring_camera_cells, ring_calibrate_infos
 from torch_port_helpers import narrow_spec, random_variables, to_port_spec
 from torch_train_helpers import check_step, train_runs
+from torch_trainer_helpers import jax_native_of_its_own  # noqa: F401 (autouse: JAX's LiDAR prep of the module's own)
 from torch_trainer_helpers import tree_config, write_test_tree
 
 TOL = 1e-5

@@ -34,6 +34,7 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.config import load_confi
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data import converter as port_converter
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data import validate as port_validate
 from torch_trainer_helpers import ROOT
+from torch_trainer_helpers import jax_native_of_its_own  # noqa: F401 (autouse: JAX's LiDAR prep of the module's own)
 
 CAMERAS = ["CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_FRONT_LEFT", "CAM_BACK", "CAM_BACK_LEFT", "CAM_BACK_RIGHT"]
 RADARS = ["RADAR_FRONT", "RADAR_FRONT_LEFT", "RADAR_FRONT_RIGHT", "RADAR_BACK_LEFT", "RADAR_BACK_RIGHT"]

@@ -17,6 +17,7 @@ from bevfusion_multimodal_3d_object_detection_tpu.data import dataset as jax_dat
 from bevfusion_multimodal_3d_object_detection_tpu.data import native as jax_native
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data import converter as port_converter
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data import dataset as port_dataset
+from torch_trainer_helpers import jax_native_of_its_own  # noqa: F401 (autouse: JAX's LiDAR prep of the module's own)
 from torch_trainer_helpers import tree_config, write_test_tree
 
 
@@ -70,6 +71,9 @@ def _datasets(cfg, split, **kw):
 @pytest.mark.parametrize("q5", [True, False], ids=["q5-4float", "5float"])
 def test_nuscenes_dataset_matches_jax(nuscenes_tree, emit_uint8, native, q5):
     if native:
+        # the module's own build (jax_native_of_its_own): the shared one in
+        # csrc/ races between xdist workers, and a worker that lost the race
+        # keeps numpy for good
         assert jax_native.get_lib() is not None  # else JAX would silently take numpy
     jax_ds, port_ds = _datasets(_config(nuscenes_tree, lidar_four_float_parse=q5), "train",
                                 emit_uint8=emit_uint8, use_native=native)

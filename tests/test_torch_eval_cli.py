@@ -25,6 +25,7 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch import eval as port_eval
 from bevfusion_multimodal_3d_object_detection_tpu_torch import train_detect
 from bevfusion_multimodal_3d_object_detection_tpu_torch.train.checkpoint import msgpack_restore, save_checkpoint
 from torch_port_helpers import random_variables
+from torch_trainer_helpers import jax_native_of_its_own  # noqa: F401 (autouse: JAX's LiDAR prep of the module's own)
 from torch_trainer_helpers import tree_config, write_test_tree
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]

@@ -47,8 +47,8 @@ TOOL_MODULES = (
     "utils.aot", "utils.profiling", "utils.cache", "data.validate", "data_converter", "data_validate",
     "validate_data_with_samples", "ops.preprocess", "ops.targets",
 )
-# data parallelism
-PARALLEL_MODULES = ("parallel", "parallel.distributed", "parallel.mesh", "parallel.zero")
+# data parallelism and the camera-view axis
+PARALLEL_MODULES = ("parallel", "parallel.distributed", "parallel.mesh", "parallel.view", "parallel.zero")
 
 
 def test_port_imports_without_jax():
@@ -58,7 +58,7 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.splitlines()[-1].split())
-    assert len(imported) >= 51  # every module was imported
+    assert len(imported) >= 52  # every module was imported
     assert {
         f"{PORT}.{m}"
         for m in TRAINING_MODULES + ENTRY_POINT_MODULES + VARIANT_MODULES + TOOL_MODULES + PARALLEL_MODULES

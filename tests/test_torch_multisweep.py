@@ -33,6 +33,7 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.convert import (
 )
 from chip_smoke import add_sweeps, matrix_quat, ring_calibrate_infos, write_radar_pcd
 from torch_port_helpers import narrow_spec, numpy_tree, random_variables, to_port_spec
+from torch_trainer_helpers import jax_native_of_its_own  # noqa: F401 (autouse: JAX's LiDAR prep of the module's own)
 from torch_trainer_helpers import tree_config, write_test_tree
 
 IDENTITY = {"rotation": [1, 0, 0, 0], "translation": [0, 0, 0]}

@@ -20,34 +20,12 @@ from bevfusion_multimodal_3d_object_detection_tpu.models import MultiModal3DDete
 from bevfusion_multimodal_3d_object_detection_tpu.train.loop import Trainer as JaxTrainer
 from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
 from chip_smoke import randomize_stats
-from torch_parallel_worker import launch, parallel_batches, train_steps
+from torch_parallel_worker import launch, parallel_batches, relative_errors, tensor_error, train_steps
 from torch_port_helpers import narrow_spec, to_port_spec
 from torch_train_helpers import adam_moments, state_dict_of
 
 LIMIT = 1e-6
 STEPS = 3
-
-
-def tensor_error(got: dict, want: dict, floor_share: float = 0.0) -> float:
-    """The worst of each tensor's error over its own largest, or over
-    `floor_share` of the largest of all where that is more."""
-    floor = floor_share * max(float(w.abs().max()) for w in want.values())
-    worst = 0.0
-    for name, w in want.items():
-        top = max(float(w.abs().max()), floor)
-        if top > 0:
-            worst = max(worst, float((got[name] - w).abs().max()) / top)
-    return worst
-
-
-def relative_errors(got: dict, want: dict) -> dict:
-    """Each record part's worst error: losses relative, tensors over their
-    own largest. A first moment whose largest is below 1e-9 of the largest
-    of all (a bias right before a BatchNorm: its gradient is 0 but for
-    rounding) is measured against that floor."""
-    return {"losses": max(abs(got["losses"][k] - v) / abs(v) for k, v in want["losses"].items() if v),
-            "state": tensor_error(got["state"], want["state"]),
-            "mu": tensor_error(got["mu"], want["mu"], 1e-9)}
 
 
 def within(got: dict, want: dict, limit: float = LIMIT) -> bool:

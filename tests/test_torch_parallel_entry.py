@@ -2,9 +2,10 @@
 sharding and `ParallelSpec` against the JAX package's, `all_processes_mean`
 and `barrier` across two gloo processes laid out as two nodes, the training
 CLI in two processes (``data_parallel: 2``, with ``shard_optimizer``, and
-``multi_host`` over two nodes) against one process at the same global batch,
-`InferenceServer(devices=[...])` against one device, and the options that
-still raise (ROADMAP A13b)."""
+``multi_host`` over two nodes, and ``view_parallel: 2`` with ``bev_spatial``)
+against one process at the same global batch, `InferenceServer(devices=[...])`
+against one device, and the view-parallel layouts that are refused or
+warned about."""
 
 import copy
 import dataclasses
@@ -77,14 +78,26 @@ def test_parallel_spec_parses_as_jax(case, monkeypatch, capsys):
     assert ("no coordinator is configured" in capsys.readouterr().out) == (case == 2)
 
 
-def test_view_and_bev_spatial_raise_naming_a13b(tmp_path):
+def test_view_and_bev_spatial_raise_naming_a13b(cli_runs, tmp_path):
+    """View parallelism (ROADMAP A13b) is ported: what is left refused or
+    warned about. A view group that would span two nodes raises with JAX's
+    reason; ``bev_spatial`` on a ``bev_h`` of 15 over 2 view ranks prints
+    JAX's warning and trains with the cameras split alone; one process
+    without torchrun has no coordinator."""
+    for rank in cli_runs["nodes"]:
+        assert "view axis crossing host boundaries" in rank[2]
+    for rank in cli_runs["node"]:
+        warned = rank[3]
+        assert ("Warning: parallel.bev_spatial needs bev_h (15) divisible by view_parallel (2); skipping the "
+                "spatial constraint") in warned["printed"]
+        assert warned["step"] == 2
+    assert cli_runs["node"][0][3]["writes"] == {"checkpoints": 2, "metrics": 1}
     cfg = tree_config(tmp_path, tmp_path / "data", modality="camera+radar")
-    for key, value in (("view_parallel", 2), ("bev_spatial", True)):
-        c = copy.deepcopy(cfg)
-        c["parallel"][key] = value
-        with pytest.raises(NotImplementedError, match="A13b"):
-            train_detect.main(config=c, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13b"):
+    c = copy.deepcopy(cfg)
+    c["parallel"]["view_parallel"] = 2
+    with pytest.raises(ValueError, match="launch with torchrun"):
+        train_detect.main(config=c, device="cpu")
+    with pytest.raises(RuntimeError, match="not initialized"):
         make_data_group(n_data=1, n_view=2)
     c = copy.deepcopy(cfg)
     c["parallel"].update(multi_host=True, shard_optimizer=True)
@@ -128,12 +141,15 @@ def _largest_error(got: dict, want: dict) -> float:
 def cli_runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("cli")
     data = write_test_tree(tmp / "data", samples_per_split=4, n_points=400)
-    dirs = {k: tmp / k for k in ("single", "dp", "zero", "multi_host")}
+    dirs = {k: tmp / k for k in ("single", "dp", "zero", "view", "view_warn", "multi_host")}
     cfgs = {k: tree_config(d, data, modality="camera+radar") for k, d in dirs.items()}
     for d in dirs.values():
         d.mkdir()
     cfgs["dp"]["parallel"]["data_parallel"] = 2
     cfgs["zero"]["parallel"].update(data_parallel=2, shard_optimizer=True)
+    cfgs["view"]["parallel"].update(view_parallel=2, bev_spatial=True)
+    cfgs["view_warn"]["parallel"].update(view_parallel=2, bev_spatial=True)
+    cfgs["view_warn"]["model"]["bev_fusion"].update(bev_h=15, bev_w=15)
     cfgs["multi_host"]["parallel"]["multi_host"] = True
     cfgs["multi_host"]["train"]["batch_size"] = 1  # two nodes of one row: the global batch of 2
 
@@ -145,14 +161,15 @@ def cli_runs(tmp_path_factory):
         finally:
             os.chdir(cwd)
 
-    node, trainer = launch([("train_cli", dict(config=cfgs[k], workdir=str(dirs[k]))) for k in ("dp", "zero")],
-                           during=single)
+    node, trainer = launch([("train_cli", dict(config=cfgs[k], workdir=str(dirs[k])))
+                            for k in ("dp", "zero", "view", "view_warn")], during=single)
     nodes = launch([("train_cli", dict(config=cfgs["multi_host"], workdir=str(dirs["multi_host"]))),
-                    ("process_means", dict(values={"a": 1.0, "b": 3.0}))], nodes=2)
+                    ("process_means", dict(values={"a": 1.0, "b": 3.0})), ("view_across_nodes", {}),
+                    ("process_means", dict(values={"c": 0.1, "d": 1 / 3}))], nodes=2)
     return {"dirs": dirs, "single": trainer, "node": node, "nodes": nodes}
 
 
-@pytest.mark.parametrize("run", ["dp", "zero", "multi_host"])
+@pytest.mark.parametrize("run", ["dp", "zero", "view", "multi_host"])
 def test_train_cli_in_two_processes_equals_one(cli_runs, run):
     """Two processes at the global batch of one: rank 0 alone writes the
     checkpoints, the per-step log and the report; both ranks end with the
@@ -164,7 +181,7 @@ def test_train_cli_in_two_processes_equals_one(cli_runs, run):
     statistics; the float64 steps of test_torch_parallel.py hold the
     numerics at 1e-6.)"""
     ranks = cli_runs["nodes"] if run == "multi_host" else cli_runs["node"]
-    res = [r[0 if run == "multi_host" else ("dp", "zero").index(run)] for r in ranks]
+    res = [r[0 if run == "multi_host" else ("dp", "zero", "view").index(run)] for r in ranks]
     dirs = cli_runs["dirs"]
     assert res[0]["writes"] == {"checkpoints": 2, "metrics": 1}  # epoch 0 and best_model
     assert res[1]["writes"] == {"checkpoints": 0, "metrics": 0}
@@ -192,3 +209,16 @@ def test_processes_mean_and_barrier(cli_runs):
     for rank, result in enumerate(r[1] for r in cli_runs["nodes"]):
         assert (result["node"], result["nodes"], result["multi_process"]) == (rank, 2, True)
         assert result["mean"] == {"a": 1.5, "b": 4.5}
+
+
+def test_processes_mean_is_jax_float32_mean(cli_runs):
+    """C8: as the JAX package averages (`all_processes_mean`), each node's
+    values rounded to float32 and ``np.mean`` taken of the float32 rows,
+    bit for bit (a float64 mean differs in the last float32 digits)."""
+    values = {"c": 0.1, "d": 1 / 3}
+    rows = np.asarray([[values[k] * (node + 1) for k in sorted(values)] for node in range(2)], np.float32)
+    want = np.mean(rows, axis=0)
+    for r in cli_runs["nodes"]:
+        got = r[3]["mean"]
+        assert [got[k] for k in sorted(values)] == [float(w) for w in want]
+    assert got["c"] != 0.15  # the float64 mean of the float64 values

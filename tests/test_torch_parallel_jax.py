@@ -20,22 +20,31 @@ wrong on the CPU backend (port_numerics.py), so the model is camera-only.
 One step: the losses are f32 in both packages, and the next step's
 parameters then differ by up to 7e-6 of a tensor's largest between the
 packages, single-process as on the mesh.
+
+In the same two processes, laid out as (data 1, view 2), the port's
+view-rank eval forward of a ``bev_spatial`` tri-modal model (each rank's 3
+cameras through the trunk and 8 of the 16 BEV rows through the head) against
+the JAX forward jitted on a ``make_mesh(n_data=1, n_view=2)`` mesh with the
+cameras sharded over ``'view'`` and the fused map's rows pinned to it, from
+the same variables, at 1e-5 of each output's largest, in f32.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from bevfusion_multimodal_3d_object_detection_tpu import config as jax_config
 from bevfusion_multimodal_3d_object_detection_tpu.models import MultiModal3DDetector as JaxDetector
-from bevfusion_multimodal_3d_object_detection_tpu.parallel import make_mesh
+from bevfusion_multimodal_3d_object_detection_tpu.parallel import make_mesh, shard_batch
 from bevfusion_multimodal_3d_object_detection_tpu.train.loop import Trainer as JaxTrainer
 from bevfusion_multimodal_3d_object_detection_tpu.train.loop import TrainState
 from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
 from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.convert import load_jax_variables
 from chip_smoke import step_errors
 from torch_parallel_worker import launch, parallel_batches
-from torch_port_helpers import narrow_spec, random_variables, to_port_spec
+from torch_port_helpers import detector_inputs, narrow_spec, random_variables, to_port_spec
 from torch_train_helpers import LR, adam_moments, port_layout
 
 STEPS = 1
@@ -63,7 +72,21 @@ def jax_mesh_steps(spec, variables, batches):
     return records
 
 
-def test_two_ranks_equal_the_jax_mesh_step():
+def jax_view_forward(spec, variables, inputs):
+    """The JAX eval forward, jitted, on a (data 1, view 2) mesh: the cameras
+    sharded over 'view' (`shard_batch`), the fused map's rows pinned to it
+    (the CLI's ``bev_sharding`` under ``bev_spatial``); numpy maps."""
+    mesh = make_mesh(n_data=1, n_view=2)
+    model = JaxDetector(spec=spec, mask_padding=False, bev_sharding=NamedSharding(mesh, P(None, "view")))
+    batch = shard_batch(mesh, dict(zip(("camera_imgs", "lidar_points", "radar_points"), inputs)))
+    assert batch["camera_imgs"].sharding.spec[1] == "view"
+    out = jax.jit(lambda v, c, l, r: model.apply(v, c, l, r, train=False))(
+        variables, batch["camera_imgs"], batch["lidar_points"], batch["radar_points"])
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def runs():
     spec = narrow_spec("camera")
     port_spec = to_port_spec(spec)
     batches = parallel_batches(port_spec, STEPS, seed=1)
@@ -72,10 +95,23 @@ def test_two_ranks_equal_the_jax_mesh_step():
                                                                                    "radar_points")))
     variables = random_variables(init, seed=5)
     state = load_jax_variables(MultiModal3DDetector(port_spec).double(), variables).state_dict()
-    ranks, want = launch([("train_steps", dict(spec=port_spec, state=state, batches=batches))],
-                         during=lambda: jax_mesh_steps(spec, variables, batches))
-    bs = variables["batch_stats"]
-    for rank in ranks:
+    # the view-parallel forward: tri-modal, f32
+    tri = narrow_spec("camera+lidar+radar")
+    port_tri = to_port_spec(tri)
+    inputs = detector_inputs(port_tri, batch=2, seed=2)
+    tri_vars = random_variables(JaxDetector(spec=tri).init({"params": jax.random.PRNGKey(1)},
+                                                           *(a[:1] for a in inputs)), seed=6)
+    tri_state = load_jax_variables(MultiModal3DDetector(port_tri), tri_vars).state_dict()
+    ranks, (want, want_forward) = launch(
+        [("train_steps", dict(spec=port_spec, state=state, batches=batches)),
+         ("view_forward", dict(spec=port_tri, state=tri_state, inputs=inputs))],
+        during=lambda: (jax_mesh_steps(spec, variables, batches), jax_view_forward(tri, tri_vars, inputs)))
+    return {"spec": spec, "variables": variables, "ranks": ranks, "want": want, "want_forward": want_forward}
+
+
+def test_two_ranks_equal_the_jax_mesh_step(runs):
+    spec, want, bs = runs["spec"], runs["want"], runs["variables"]["batch_stats"]
+    for rank in runs["ranks"]:
         records = rank[0]["records"]
         for step, record in enumerate(want):
             # JAX's f32 step held to the port's float64 step, as
@@ -86,3 +122,13 @@ def test_two_ranks_equal_the_jax_mesh_step():
             worst, failures = step_errors(got, records[step], prev_mu, LR, f"step {step + 1}", grad_norm_rtol=1e-4)
             assert all(v <= 2.0 for v in worst.values()), (worst, failures)
             assert not [f for f in failures if "of the limit" not in f], failures
+
+
+def test_view_ranks_forward_equals_the_jax_mesh_forward(runs):
+    want = runs["want_forward"]
+    for rank in runs["ranks"]:
+        got = rank[1]
+        assert got["head_on_rows"]
+        assert set(got["preds"]) == set(want)
+        for k, w in want.items():
+            np.testing.assert_allclose(got["preds"][k], w, rtol=0, atol=1e-5 * np.abs(w).max(), err_msg=k)

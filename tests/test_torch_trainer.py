@@ -39,6 +39,7 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.convert import (
     export_jax_variables,
     load_jax_variables,
 )
+from chip_smoke import tree_leaves
 from torch_port_helpers import narrow_spec, numpy_tree, random_variables, to_port_spec
 from torch_trainer_helpers import tree_config, write_test_tree
 
@@ -90,13 +91,22 @@ def test_train_cli_writes_the_jax_artifacts_and_resumes(nuscenes_tree, tmp_path,
     assert [json.loads(s)["step"] for s in lines[4:]] == [5, 6]
 
 
-def test_cli_refuses_unported_options(nuscenes_tree, tmp_path):
-    for section, key, value, item in (("parallel", "view_parallel", 2, "A13b"),
-                                      ("parallel", "bev_spatial", True, "A13b")):
-        cfg = tree_config(tmp_path, nuscenes_tree)
-        cfg.setdefault(section, {})[key] = value
-        with pytest.raises(NotImplementedError, match=item):
-            train_detect.main(config=cfg, device="cpu")
+def test_cli_refuses_unported_options(nuscenes_tree, tmp_path, monkeypatch):
+    """C7: ``bev_spatial`` without a view axis trains exactly as without the
+    key (JAX builds its BEV sharding only with view_parallel > 1, root
+    train_detect.py:121-137); the orbax backends stay JAX's."""
+    monkeypatch.chdir(tmp_path)
+    runs = {}
+    for bev_spatial in (False, True):
+        cfg = tree_config(tmp_path / str(bev_spatial), nuscenes_tree, modality="camera+radar")
+        cfg["parallel"]["bev_spatial"] = bev_spatial
+        trainer = train_detect.main(config=cfg, device="cpu")
+        runs[bev_spatial] = (export_jax_variables(trainer.model),
+                             (tmp_path / str(bev_spatial) / "logs" / "train_log.jsonl").read_text())
+    got, want = (dict(tree_leaves(runs[k][0])) for k in (True, False))
+    assert set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want)
+    strip = lambda log: [{k: v for k, v in json.loads(ln).items() if k != "step_seconds"} for ln in log.splitlines()]
+    assert strip(runs[True][1]) == strip(runs[False][1])
     cfg = tree_config(tmp_path, nuscenes_tree)
     cfg["train"]["checkpoint"]["backend"] = "orbax_async"
     with pytest.raises(NotImplementedError, match="orbax"):

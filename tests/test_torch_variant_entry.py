@@ -35,6 +35,7 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import Inference
 from bevfusion_multimodal_3d_object_detection_tpu_torch.utils import reference_convert as port_convert
 from test_reference_checkpoint import _reference_style_state_dict
 from torch_port_helpers import detector_inputs, random_variables
+from torch_trainer_helpers import jax_native_of_its_own  # noqa: F401 (autouse: JAX's LiDAR prep of the module's own)
 from torch_trainer_helpers import tree_config, write_test_tree
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]

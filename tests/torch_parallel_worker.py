@@ -125,17 +125,46 @@ def parallel_batches(spec, n_steps: int = 3, seed: int = 0) -> List[Dict[str, np
     return out
 
 
+def tensor_error(got: dict, want: dict, floor_share: float = 0.0) -> float:
+    """The worst of each tensor's error over its own largest, or over
+    `floor_share` of the largest of all where that is more."""
+    floor = floor_share * max(float(w.abs().max()) for w in want.values())
+    worst = 0.0
+    for name, w in want.items():
+        top = max(float(w.abs().max()), floor)
+        if top > 0:
+            worst = max(worst, float((got[name] - w).abs().max()) / top)
+    return worst
+
+
+def relative_errors(got: dict, want: dict) -> dict:
+    """Each record part's worst error: losses relative, tensors over their
+    own largest. A first moment whose largest is below 1e-9 of the largest
+    of all (a bias right before a BatchNorm: its gradient is 0 but for
+    rounding) is measured against that floor."""
+    return {"losses": max(abs(got["losses"][k] - v) / abs(v) for k, v in want["losses"].items() if v),
+            "state": tensor_error(got["state"], want["state"]),
+            "mu": tensor_error(got["mu"], want["mu"], 1e-9)}
+
+
 # -- jobs -------------------------------------------------------------------
 
 
-def data_group(multi_host: bool = False):
-    """The data group of the launched processes; None without a process
-    group (the reference in the parent)."""
+_GROUPS: Dict[Tuple[bool, int], object] = {}
+
+
+def data_group(multi_host: bool = False, n_view: int = 1):
+    """The ('data', 'view') layout of the launched processes, made once a
+    process for each (multi_host, n_view) and shared by its jobs; None
+    without a process group (the reference in the parent)."""
     from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel import make_data_group
 
     if not torch.distributed.is_initialized():
         return None
-    return make_data_group(multi_host=multi_host)
+    key = (multi_host, n_view)
+    if key not in _GROUPS:
+        _GROUPS[key] = make_data_group(n_view=n_view, multi_host=multi_host)
+    return _GROUPS[key]
 
 
 def _record(trainer, losses) -> Dict:
@@ -151,13 +180,17 @@ def _record(trainer, losses) -> Dict:
 
 def train_steps(spec, state, batches, dtype=torch.float64, skip_augmentation: bool = True,
                 shard_optimizer: bool = False, mutant: Optional[str] = None, multi_host: bool = False,
-                checkpoint: Optional[str] = None) -> Dict:
+                checkpoint: Optional[str] = None, n_view: int = 1, bev_spatial: bool = False,
+                single: bool = False) -> Dict:
     """A Trainer of `spec` holding `state`, through the batches (each the
     node's batch), with check_gradients: one record a step. `mutant`
     ``"bn"`` takes the BatchNorm statistics of each rank's rows alone,
-    ``"num_pos"`` the focal loss's positives of each rank's rows alone.
-    With `checkpoint`, saves there after the last step and restores it
-    into a fresh Trainer, whose moments end the result."""
+    ``"num_pos"`` the focal loss's positives of each rank's rows alone, and
+    the view axis's (`n_view` > 1) are `chip_smoke.view_mutant`'s. With
+    `checkpoint`, saves there after the last step and restores it into a
+    fresh Trainer, whose moments end the result. `single` trains this
+    process alone, as the reference does."""
+    from chip_smoke import VIEW_MUTANTS, view_mutant
     from bevfusion_multimodal_3d_object_detection_tpu_torch.config import CompatFlags, TrainSpec
     from bevfusion_multimodal_3d_object_detection_tpu_torch.models.batch_norm import global_statistics
     from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
@@ -165,10 +198,11 @@ def train_steps(spec, state, batches, dtype=torch.float64, skip_augmentation: bo
     from bevfusion_multimodal_3d_object_detection_tpu_torch.train.loop import Trainer
 
     compat = CompatFlags(skip_augmentation=skip_augmentation)
-    group = data_group(multi_host)
+    group = None if single else data_group(multi_host, n_view)
 
     def trainer_of(load):
-        model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding).to(dtype)
+        model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding,
+                                     bev_spatial=bev_spatial).to(dtype)
         trainer = Trainer(model, TrainSpec(), compat, check_gradients=True, device="cpu",
                           process_group=group, shard_optimizer=shard_optimizer).init_state()
         model.load_state_dict(load)
@@ -180,10 +214,11 @@ def train_steps(spec, state, batches, dtype=torch.float64, skip_augmentation: bo
         global_statistics(trainer.model, None)
     elif mutant == "num_pos":
         port_losses.focal_loss = lambda *a, group=None, **k: focal(*a, **k)
-    elif mutant is not None:
+    elif mutant is not None and mutant not in VIEW_MUTANTS:
         raise ValueError(mutant)
     try:
-        records = [_record(trainer, trainer.train_step(b)) for b in batches]
+        with view_mutant(mutant if mutant in VIEW_MUTANTS else None):
+            records = [_record(trainer, trainer.train_step(b)) for b in batches]
     finally:
         port_losses.focal_loss = focal
     out = {"records": records, "moment_bytes": _moment_bytes(trainer.optimizer)}
@@ -196,11 +231,57 @@ def train_steps(spec, state, batches, dtype=torch.float64, skip_augmentation: bo
     return out
 
 
+def step_errors_here(spec, state, batches, runs: List[Dict]) -> List[List[Dict]]:
+    """Each of `runs` (`train_steps`' keyword arguments but the spec, state
+    and batches, which it may cut) against one process's steps on
+    `batches`, trained here: `relative_errors` of each step. (Only the
+    errors travel back, not the float64 records of every tensor.)"""
+    ref = train_steps(spec, state, batches, single=True)["records"]
+    out = []
+    for run in runs:
+        run = dict(run)
+        records = train_steps(spec, state, run.pop("batches", batches), **run)["records"]
+        out.append([relative_errors(got, want) for got, want in zip(records, ref)])
+    return out
+
+
 def _moment_bytes(optimizer) -> int:
     if hasattr(optimizer, "moment_bytes"):
         return optimizer.moment_bytes()
     return sum(s[k].numel() * s[k].element_size() for s in optimizer.adamw.state.values()
                for k in ("exp_avg", "exp_avg_sq"))
+
+
+def layout_of(n_view: int = 2) -> dict:
+    """This rank's place in the ('data', 'view') layout, and what its
+    groups hold (a job of the launched processes)."""
+    import torch.distributed as dist
+
+    group = data_group(n_view=n_view)
+    shard = group.view_shard()
+    rank = torch.tensor([float(group.rank)])
+    in_view, in_data = [torch.zeros(1) for _ in range(n_view)], [torch.zeros(1) for _ in range(group.n_data)]
+    dist.all_gather(in_view, rank, group=group.view_group)
+    dist.all_gather(in_data, rank, group=group.data_axis)
+    batch = {"rows": torch.arange(8), "tokens": "t"}
+    return {"data_index": group.data_index, "view_index": group.view_index, "shard_index": shard.index,
+            "view_ranks": [int(t) for t in in_view], "data_ranks": [int(t) for t in in_data],
+            "rows": group.local_rows(batch)["rows"].tolist(),
+            "gathered": group.gather_node_rows({"r": torch.tensor([group.data_index])})["r"].tolist()}
+
+
+def view_forward(spec, state, inputs, n_view: int = 2) -> Dict:
+    """The eval forward of a `bev_spatial` model holding `state` on this
+    rank's view shard (the world's ranks as (world / n_view, n_view)): the
+    prediction maps as numpy, and whether the head ran on row blocks."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
+
+    model = MultiModal3DDetector(spec, bev_spatial=True)
+    model.load_state_dict(state)
+    model.shard_views(data_group(n_view=n_view).view_shard()).eval()
+    with torch.inference_mode():
+        preds = model(*(torch.from_numpy(a) for a in inputs))
+    return {"preds": {k: v.numpy() for k, v in preds.items()}, "head_on_rows": model.head_on_rows()}
 
 
 def process_means(values: Dict[str, float]) -> Dict:
@@ -222,8 +303,11 @@ def process_means(values: Dict[str, float]) -> Dict:
 
 def train_cli(config: Dict, workdir: str) -> Dict:
     """`train_detect.main(config=config, device="cpu")` in `workdir`: the
-    trainer's final variables and step, the files under `workdir`, and how
-    many checkpoints and metrics reports this process wrote."""
+    trainer's final variables and step, the files under `workdir`, how
+    many checkpoints and metrics reports this process wrote, and what it
+    printed."""
+    import io
+
     from bevfusion_multimodal_3d_object_detection_tpu_torch import train_detect
     from bevfusion_multimodal_3d_object_detection_tpu_torch.train import checkpoint
     from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.convert import export_jax_variables
@@ -245,9 +329,21 @@ def train_cli(config: Dict, workdir: str) -> Dict:
         cwd = os.getcwd()
         os.chdir(workdir)
         stack.callback(os.chdir, cwd)
+        printed = stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
         trainer = train_detect.main(config=copy.deepcopy(config), device="cpu")
     return {"variables": export_jax_variables(trainer.model), "step": trainer.step, "writes": writes,
-            "files": sorted(str(p.relative_to(workdir)) for p in Path(workdir).rglob("*") if p.is_file())}
+            "files": sorted(str(p.relative_to(workdir)) for p in Path(workdir).rglob("*") if p.is_file()),
+            "printed": printed.getvalue()}
+
+
+def view_across_nodes() -> str:
+    """The refusal of a view group that would span nodes (two nodes of one
+    process each, view_parallel 2)."""
+    try:
+        data_group(multi_host=True, n_view=2)
+    except ValueError as e:
+        return str(e)
+    return "no error"
 
 
 def serve_batches(config: Dict, samples: List[Dict], devices) -> List:

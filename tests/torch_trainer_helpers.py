@@ -6,14 +6,38 @@ the repo's base.yaml that points at it."""
 import copy
 import pathlib
 import pickle
+import subprocess
 
 import numpy as np
+import pytest
 
 from bevfusion_multimodal_3d_object_detection_tpu_torch.config import load_config
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data.converter import write_synthetic_infos
 from chip_smoke import write_radar_pcd
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_of_its_own(tmp_path_factory):
+    """The JAX package's native LiDAR prep built into this module's own
+    directory and bound for the module. Its binding builds straight onto
+    ``csrc/libpointprep.so`` and remembers a failed load for the life of the
+    process, so under xdist a worker that loads it while another writes it
+    takes numpy for good; the JAX loader then silently differs from the
+    port's native one. A module that imports this fixture compares against
+    a library no other process writes. Same g++ flags as JAX
+    ``data/native.py``."""
+    from bevfusion_multimodal_3d_object_detection_tpu.data import native as jax_native
+
+    so = tmp_path_factory.mktemp("jax_native") / "libpointprep.so"
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(ROOT / "csrc" / "pointprep.cc"),
+                    "-o", str(so)], check=True, capture_output=True, timeout=120)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_SO", so)
+        mp.setattr(jax_native, "_LIB", None)
+        mp.setattr(jax_native, "_TRIED", False)
+        yield
 
 
 def lidar_cloud(rng, n_points):
