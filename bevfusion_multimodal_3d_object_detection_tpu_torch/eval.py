@@ -11,8 +11,10 @@ is the loader's (5 with ``dataset.num_sweeps`` > 1), as the JAX CLI's init
 traced from the first val sample gives it.
 
 Pipeline: the val split (float cameras, f32 forward) -> restore of
-``./checkpoints/best_model.msgpack`` (exit 1 when it is missing, unless
-``BMOD_ALLOW_RANDOM_INIT=1``) -> forward + the eval-path decode (voxel
+``./checkpoints/best_model.msgpack`` or, where there is none, of the
+committed directory ``./checkpoints/best_model`` that the ``orbax``
+backends write (the JAX eval CLI reads the ``.msgpack`` alone; exit 1 when
+neither is there, unless ``BMOD_ALLOW_RANDOM_INIT=1``) -> forward + the eval-path decode (voxel
 0.512, Q3) at score 0.0 (Q16), or the resurrected ``val.post_processing``
 when the config's ``compat.ignore_post_processing_config`` is off ->
 mAP/NDS in ``eval_results/eval_metrics_output.txt``, with
@@ -45,6 +47,7 @@ def main(config_path: Optional[str] = None, device=None) -> Dict:
     from .data.dataset import DataLoader, NuScenesDataset, collate_fn
     from .models.detector import MultiModal3DDetector
     from .ops.decode import decode_to_host
+    from .train.checkpoint import is_committed_checkpoint
     from .train.loop import Trainer, make_eval_step, with_data_widths
     from .utils.metrics import compute_metrics, save_and_print_metrics
 
@@ -74,6 +77,8 @@ def main(config_path: Optional[str] = None, device=None) -> Dict:
     trainer = Trainer(model, train_spec, compat, device=device).init_state(sample)
 
     ckpt = Path("./checkpoints/best_model.msgpack")
+    if not ckpt.exists() and is_committed_checkpoint(Path("./checkpoints/best_model")):
+        ckpt = Path("./checkpoints/best_model")  # a directory backend's
     if ckpt.exists():
         trainer.load_checkpoint(str(ckpt))
         print(f"Loaded checkpoint {ckpt}")

@@ -20,8 +20,8 @@ on one GPU (the CPU with ``device="cpu"``):
   camera with projected 3D boxes, the predicted heatmap, score bars and a
   class histogram, drawn with matplotlib's Agg backend.
 
-Weights come from a msgpack checkpoint of either package or a reference
-``.pth`` (`load_model`, through `utils.restore.load_serving_variables`), or
+Weights come from a msgpack checkpoint of either package, a directory
+checkpoint of the port's ``orbax`` backends or a reference ``.pth`` (`load_model`, through `utils.restore.load_serving_variables`), or
 from the seeded init (`init_random`). ``camera_to_bev: geometric`` raises:
 the engine has no frustum cells to give it (ROADMAP C).
 """
@@ -152,8 +152,8 @@ class InferenceEngine:
         self._set_variables(load_serving_variables(self.spec, None, fold_bn=self.fold_bn))
 
     def load_model(self, model_path: str, strict: bool = True) -> None:
-        """Restore a msgpack checkpoint (either package's) or a reference
-        ``.pth``. A failed restore raises; `strict=False` warns and takes
+        """Restore a msgpack checkpoint (either package's), a directory
+        checkpoint of the port's ``orbax`` backends or a reference ``.pth``. A failed restore raises; `strict=False` warns and takes
         the seeded weights instead, as the JAX engine does."""
         try:
             variables = load_serving_variables(self.spec, model_path, fold_bn=self.fold_bn)

@@ -13,16 +13,22 @@ leaves every rank with identical parameters. The element-wise arithmetic is
 `torch.optim.AdamW`'s on the same values, so the parameters equal plain data
 parallelism's.
 
-Checkpoints hold the full moments in the JAX layout: `gathered` all-gathers
-them into a plain `Optimizer` that `utils.convert.opt_state_to_jax` reads,
-and `load_gathered` takes a rank's shard back from one that
-`opt_state_from_jax` filled.
+A msgpack checkpoint holds the full moments in the JAX layout: `gathered`
+all-gathers them into a plain `Optimizer` that
+`utils.convert.opt_state_to_jax` reads, and `load_gathered` takes a rank's
+shard back from one that `opt_state_from_jax` filled. A directory checkpoint
+(``orbax``, ``orbax_async``; `train.checkpoint`) gathers nothing, as JAX's
+orbax writes each process's shards: `shard_moments` gives the rank's flat
+slice ``[lo, hi)`` to write, and `load_shard` takes the slice of the current
+world, which `train.checkpoint.read_moments` cuts from whatever world wrote
+the files.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -113,3 +119,30 @@ class ZeroOptimizer(Optimizer):
                 "exp_avg": self._flat_slice([s["exp_avg"] for s in states]),
                 "exp_avg_sq": self._flat_slice([s["exp_avg_sq"] for s in states]),
             }
+
+    def shard_moments(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's flat ``exp_avg`` and ``exp_avg_sq`` of ``[lo, hi)``
+        (views, without the padding; zeros before the first update)."""
+        state = self.adamw.state.get(self.shard)
+        n = self.hi - self.lo
+        if not state:
+            zeros = self.shard.new_zeros(n)
+            return zeros, zeros
+        return state["exp_avg"][:n], state["exp_avg_sq"][:n]
+
+    def load_shard(self, counts: Optimizer, exp_avg: np.ndarray, exp_avg_sq: np.ndarray) -> None:
+        """Take the counts and accumulated gradients of `counts` (a plain
+        `Optimizer` that `opt_state_from_jax` filled without moments) and
+        this rank's slice ``[lo, hi)`` of the flat moments."""
+        self.updates, self.mini_step, self._acc = counts.updates, counts.mini_step, counts._acc
+
+        def padded(flat: np.ndarray) -> torch.Tensor:
+            out = torch.zeros_like(self.shard)
+            out[: self.hi - self.lo] = torch.from_numpy(np.ascontiguousarray(flat)).to(out)
+            return out
+
+        # as `opt_state_from_jax` keeps AdamW's step: on the host, the default float type
+        step_dtype = torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+        self.adamw.state.clear()
+        self.adamw.state[self.shard] = {"step": torch.tensor(float(self.updates), dtype=step_dtype),
+                                        "exp_avg": padded(exp_avg), "exp_avg_sq": padded(exp_avg_sq)}

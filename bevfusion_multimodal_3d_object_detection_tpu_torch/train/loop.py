@@ -60,6 +60,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+from pathlib import Path
 from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -487,6 +488,29 @@ def mlp_detections(preds: Dict[str, torch.Tensor]) -> List[Dict[str, np.ndarray]
     return dets
 
 
+class HostBuffers:
+    """Host copies of tensors in buffers allocated once (pinned for CUDA
+    tensors) and reused while the shapes and dtypes stay."""
+
+    def __init__(self):
+        self._buffers: Dict[str, torch.Tensor] = {}
+
+    def copy(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The buffers holding `tensors`' values, the copies complete."""
+        out, devices = {}, set()
+        for name, t in tensors.items():
+            buf = self._buffers.get(name)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = self._buffers[name] = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+            buf.copy_(t.detach(), non_blocking=t.is_cuda)
+            out[name] = buf
+            if t.is_cuda:
+                devices.add(t.device)
+        for device in devices:
+            torch.cuda.current_stream(device).synchronize()
+        return out
+
+
 class Trainer:
     """Epochs, validation with mAP/NDS, and checkpoints over `make_train_step`
     and `make_eval_step` (``train/loop.py:294-615`` of the JAX package,
@@ -501,10 +525,18 @@ class Trainer:
     `process_group` (a `parallel.DataGroup`) trains data-parallel (see the
     module docstring); `shard_optimizer` then shards the AdamW moments
     (ZeRO-1, `parallel.zero`) when the group has more than one rank. Under a
-    group the global rank 0 writes the checkpoints, whose moments are the
+    group every rank must call `save_checkpoint` and `load_checkpoint`. A
+    msgpack checkpoint is written by the global rank 0, its moments the
     gathered full ones (the JAX layout, restored by either package and
-    sharded again on load); every rank must call `save_checkpoint` and
-    `load_checkpoint`."""
+    sharded again on load). A directory checkpoint (``orbax``,
+    ``orbax_async``; `train.checkpoint`) is written by every rank that holds
+    a part: rank 0 the variables, the counts and, without ZeRO, the
+    moments; under ZeRO each data index's first view rank its shard, which
+    no rank gathers, and a restore reads this rank's slice for the current
+    world. The state is first copied to host buffers, allocated once
+    (pinned on CUDA) and reused; ``orbax_async`` returns once that copy is
+    complete and writes on a background thread
+    (`train.checkpoint.wait_for_checkpoints` is the fence)."""
 
     def __init__(
         self,
@@ -537,6 +569,7 @@ class Trainer:
         self.train_step: Optional[TrainStep] = None
         self.eval_step: Optional[Callable] = None
         self.best_map = -1.0
+        self._host = HostBuffers()  # a directory checkpoint's snapshot
 
     # -- state ---------------------------------------------------------------
     def init_state(self, sample_batch: Optional[Dict] = None) -> "Trainer":
@@ -675,56 +708,148 @@ class Trainer:
         return self.optimizer.gathered()
 
     def _payload(self, epoch: int, best_map: float, empty: bool = False,
-                 optimizer: Optional[Optimizer] = None) -> Dict:
+                 optimizer: Optional[Optimizer] = None, opt_state: bool = True) -> Dict:
         from ..utils.convert import export_jax_variables, opt_state_to_jax
 
         variables = export_jax_variables(self.model, empty=empty)
-        optimizer = optimizer or self._full_optimizer(empty)
-        return {
+        payload = {
             "params": variables["params"],
             "batch_stats": variables["batch_stats"],
-            "opt_state": opt_state_to_jax(optimizer, self.model, empty=empty),
             "step": np.asarray(self.step, np.int32),
             "epoch": np.asarray(epoch, np.int32),
             "best_map": np.asarray(best_map, np.float32),
         }
+        if opt_state:
+            optimizer = optimizer or self._full_optimizer(empty)
+            payload["opt_state"] = opt_state_to_jax(optimizer, self.model, empty=empty)
+        return payload
 
     @property
     def writes(self) -> bool:
         """Whether this process writes checkpoints: the global rank 0."""
         return self.data is None or self.data.rank == 0
 
-    def save_checkpoint(self, path: str, epoch: int) -> None:
+    def save_checkpoint(self, path: str, epoch: int, backend: str = "msgpack") -> None:
         """Write the payload in the JAX package's msgpack layout (global
-        rank 0 only, the others waiting until it is written)."""
-        from .checkpoint import save_checkpoint
+        rank 0 only, the others waiting until it is written), or under
+        ``orbax`` / ``orbax_async`` a directory checkpoint (see the class
+        docstring)."""
+        from .checkpoint import DIRECTORY_BACKENDS, save_checkpoint
 
+        if backend in DIRECTORY_BACKENDS:
+            self._save_directory(path, epoch, backend)
+            return
         optimizer = self._full_optimizer()
         if self.writes:
             save_checkpoint(path, self._payload(epoch, self.best_map, optimizer=optimizer))
         if self.data is not None:
             barrier(self.data.group)
 
+    def _save_directory(self, path: str, epoch: int, backend: str) -> None:
+        from .checkpoint import process_group_peers, wait_for_checkpoints, write_checkpoint
+
+        # one write in flight: the host buffers are the last one's until it is done
+        wait_for_checkpoints()
+        snap = self._snapshot()
+        files = functools.partial(self._directory_files, snap, epoch, self.best_map, backend)
+        peers = process_group_peers() if self.data is not None else None
+        write_checkpoint(path, files, snap["step"], background=backend == "orbax_async", peers=peers)
+
+    def _writes_shard(self) -> bool:
+        """Whether this rank writes a ZeRO-1 shard: each data index's first
+        view rank (the moments are replicated over the view axis)."""
+        return self.shard_optimizer and self.data.view_index == 0
+
+    def _snapshot(self) -> Dict:
+        """What this rank writes of a directory checkpoint, copied to the
+        host buffers; the copies are complete when it returns, so the next
+        step may change the state in place."""
+        opt = self.optimizer
+        tensors: Dict[str, torch.Tensor] = {}
+        if self.writes:
+            tensors.update({f"state/{k}": v for k, v in self.model.state_dict().items()
+                            if not k.endswith("num_batches_tracked")})
+            for i, a in enumerate(opt._acc or ()):
+                tensors[f"acc/{i}"] = a
+            if not self.shard_optimizer:
+                for i, p in enumerate(opt.params):
+                    state = opt.adamw.state.get(p)
+                    if state:
+                        tensors[f"exp_avg/{i}"], tensors[f"exp_avg_sq/{i}"] = state["exp_avg"], state["exp_avg_sq"]
+        if self._writes_shard():
+            tensors["shard/exp_avg"], tensors["shard/exp_avg_sq"] = opt.shard_moments()
+        return {"tensors": self._host.copy(tensors), "step": self.step, "updates": opt.updates,
+                "mini_step": opt.mini_step, "acc": opt._acc is not None}
+
+    def _directory_files(self, snap: Dict, epoch: int, best_map: float, backend: str) -> Dict:
+        """This rank's files of a directory checkpoint, from its snapshot
+        (built on the writer's thread: the live state is not read)."""
+        from types import SimpleNamespace
+
+        from ..utils.convert import export_jax_variables, flat_layout, opt_state_to_jax
+        from .checkpoint import opt_state_file, payload_files, shard_file
+
+        opt, t = self.optimizer, snap["tensors"]
+        files: Dict = {}
+        if self.writes:
+            step = torch.tensor(float(snap["updates"]))
+            frozen = SimpleNamespace(
+                params=opt.params, updates=snap["updates"], mini_step=snap["mini_step"],
+                scheduled=opt.scheduled, max_norm=opt.max_norm, every_k=opt.every_k,
+                _acc=[t[f"acc/{i}"] for i in range(len(opt.params))] if snap["acc"] else None,
+                adamw=SimpleNamespace(state={
+                    p: {"step": step, "exp_avg": t[f"exp_avg/{i}"], "exp_avg_sq": t[f"exp_avg_sq/{i}"]}
+                    for i, p in enumerate(opt.params) if f"exp_avg/{i}" in t}),
+            )
+            variables = export_jax_variables(
+                self.model, state={k[len("state/"):]: v for k, v in t.items() if k.startswith("state/")})
+            payload = {**variables, "step": np.asarray(snap["step"], np.int32),
+                       "epoch": np.asarray(epoch, np.int32), "best_map": np.asarray(best_map, np.float32)}
+            if self.shard_optimizer:
+                payload["opt_state"] = opt_state_to_jax(frozen, self.model, moments=("exp_avg", "exp_avg_sq"))
+                moments = dict(flat_layout(opt, self.model), numel=sum(p.numel() for p in opt.params),
+                               shard_numel=opt.shard_numel, dtype=str(opt.shard.dtype).removeprefix("torch."))
+                files.update(payload_files(payload, backend, moments, self.data.n_data))
+            else:
+                payload["opt_state"] = opt_state_to_jax(frozen, self.model)
+                files.update(payload_files(payload, backend))
+        if self._writes_shard():
+            files[opt_state_file(self.data.data_index, self.data.n_data)] = shard_file(
+                opt.lo, opt.hi, t["shard/exp_avg"].cpu().numpy(), t["shard/exp_avg_sq"].cpu().numpy())
+        return files
+
     def load_checkpoint(self, path: str, restore_optimizer: bool = True,
-                        keep_on_shape_mismatch: bool = False) -> int:
+                        keep_on_shape_mismatch: bool = False, backend: str = "msgpack") -> int:
         """Restore parameters, BatchNorm statistics, the step count, the best
         mAP and (with `restore_optimizer`) the optimizer state from `path`,
-        with the JAX package's strict=False merge; returns the saved epoch."""
-        from ..utils.convert import load_jax_variables, opt_state_from_jax
-        from .checkpoint import fill_kept, load_checkpoint
+        with the JAX package's strict=False merge (a directory: strict, see
+        `train.checkpoint`); returns the saved epoch. The path decides the
+        format; `backend` is taken for the JAX signature. Under ZeRO-1 a
+        directory's sharded moments are read for this rank's slice alone."""
+        from ..utils.convert import flat_layout, load_jax_variables, opt_state_from_jax
+        from .checkpoint import (check_moment_layout, fill_kept, load_checkpoint, read_meta, read_moments,
+                                 wait_for_checkpoints)
 
         if self.train_step is None:
             raise RuntimeError("init_state before restoring")
+        wait_for_checkpoints()
         if self.data is not None:
             barrier(self.data.group)  # a checkpoint being written is read by no rank
+        meta = read_meta(path) if Path(path).is_dir() else None
+        sharded = restore_optimizer and self.shard_optimizer and meta is not None and "moments" in meta
         # the template gives keys, shapes and dtypes without exporting the
         # state; only a leaf the file lacks reads the current value
-        template = self._payload(0, 0.0, empty=True)
+        template = self._payload(0, 0.0, empty=True, opt_state=not sharded)
         restored = load_checkpoint(path, template, keep_on_shape_mismatch=keep_on_shape_mismatch)
-        restored = fill_kept(restored, template, lambda: self._payload(0, 0.0))
+        restored = fill_kept(restored, template, lambda: self._payload(0, 0.0, opt_state=not sharded))
         load_jax_variables(self.model, {"params": restored["params"],
                                         "batch_stats": restored["batch_stats"]})
-        if restore_optimizer:
+        if sharded:
+            check_moment_layout(meta, flat_layout(self.optimizer, self.model), path)
+            counts = self._full_optimizer(empty=True)
+            opt_state_from_jax(counts, self.model, meta["opt_state"], moments=False)
+            self.optimizer.load_shard(counts, *read_moments(path, meta, self.optimizer.lo, self.optimizer.hi))
+        elif restore_optimizer:
             full = self._full_optimizer(empty=True)
             opt_state_from_jax(full, self.model, restored["opt_state"])
             if self.shard_optimizer:

@@ -13,7 +13,12 @@ trains ``train.num_epochs`` epochs with a per-step JSONL log in
 ``save_interval`` epochs and at the last one (pruned to ``keep_last``) and
 ``best_model.msgpack`` on a new best mAP, and resumes from
 ``train.resume.checkpoint_path`` or, with ``auto``, the newest epoch
-checkpoint. The checkpoints are the JAX package's format both ways. The
+checkpoint. The msgpack checkpoints are the JAX package's format both ways.
+``train.checkpoint.backend: orbax | orbax_async`` writes directory
+checkpoints instead (``checkpoint_epoch_{e}``, ``best_model``; the port's
+layout, `train.checkpoint`): every rank writes its part, ZeRO-1's moments
+without a gather, and ``orbax_async`` writes behind the next steps, fenced
+before ``keep_last`` prunes and at the end, as in the JAX CLI. The
 LiDAR encoder's input width follows the data (a fifth, time-lag channel with
 ``dataset.num_sweeps`` > 1), as the JAX CLI's init traced from a batch gives
 it. As in the JAX CLI, the Trainer gets no ``AugmentSpec``: with
@@ -41,8 +46,9 @@ processes a node (with ``multi_host``, ``world / V`` data indices), the
 cameras of a data index's rows split over its V ranks, and with
 ``bev_spatial`` the head's BEV rows too (`parallel.view`); as in the JAX
 CLI, ``bev_spatial`` acts only with V > 1, and where ``bev_h`` does not
-divide by V it warns and is skipped. Not ported: the orbax checkpoint
-backends, which raise.
+divide by V it warns and is skipped. ``multi_host`` with
+``shard_optimizer`` needs a directory backend: msgpack is refused, with
+the JAX CLI's words.
 """
 
 from __future__ import annotations
@@ -59,19 +65,11 @@ from .config import CompatFlags, DataSpec, DetectorSpec, ParallelSpec, PostProce
 from .data.dataset import DataLoader, NuScenesDataset, collate_fn
 from .models.detector import MultiModal3DDetector
 from .parallel import all_processes_mean, make_data_group, maybe_initialize, rank_layout
-from .train.checkpoint import is_committed_checkpoint, latest_checkpoint
+from .train.checkpoint import is_committed_checkpoint, latest_checkpoint, wait_for_checkpoints
 from .train.loop import Trainer, with_data_widths
 from .utils.cache import enable_compilation_cache
 from .utils.metrics import save_and_print_metrics
 from .utils.profiling import profile_trace
-
-
-def _refuse_unported(config: Dict) -> None:
-    backend = TrainSpec.from_config(config).ckpt_backend
-    if backend != "msgpack":
-        raise NotImplementedError(
-            f"train.checkpoint.backend: {backend} needs orbax, which stays with the JAX package"
-        )
 
 
 def _epoch_of(p: Path) -> Optional[int]:
@@ -102,14 +100,12 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
     if config is None:
         config = load_config(config_path or "configs/base.yaml")
     par = ParallelSpec.from_config(config)
-    _refuse_unported(config)
     spec = DetectorSpec.from_config(config)
     train_spec = TrainSpec.from_config(config)
     data_spec = DataSpec.from_config(config)
     compat = CompatFlags.from_config(config)
     if par.multi_host and par.shard_optimizer and train_spec.ckpt_backend == "msgpack":
-        # the JAX CLI's refusal (its msgpack gathers host-locally); the
-        # port's orbax backends stay with the JAX package
+        # the JAX CLI's refusal (its msgpack gathers host-locally)
         raise SystemExit(
             "parallel.shard_optimizer with multi_host requires an orbax checkpoint backend "
             "(train.checkpoint.backend: orbax|orbax_async): msgpack gathers host-locally and cannot "
@@ -191,6 +187,8 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
     # the first epoch this run trains
     profile = (config.get("debug", {}) or {}).get("profile", False)
     log_every = 10 if is_main else 0
+    backend = train_spec.ckpt_backend
+    suffix = ".msgpack" if backend == "msgpack" else ""
 
     for epoch in range(start_epoch, train_spec.num_epochs):
         t0 = time.time()
@@ -202,10 +200,13 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
         if is_main:
             print(f"Epoch {epoch}: loss={avg_loss:.4f} ({time.time() - t0:.1f}s)")
         if (epoch + 1) % train_spec.save_interval == 0 or epoch + 1 == train_spec.num_epochs:
-            # every rank enters (ZeRO gathers the moments); rank 0 writes,
-            # and the others wait until it has before rank 0 prunes
-            trainer.save_checkpoint(str(save_dir / f"checkpoint_epoch_{epoch}.msgpack"), epoch)
+            # every rank enters: under msgpack rank 0 writes (ZeRO gathers
+            # the moments) and the others wait until it has; under the
+            # directory backends every rank writes its part
+            trainer.save_checkpoint(str(save_dir / f"checkpoint_epoch_{epoch}{suffix}"), epoch, backend=backend)
             if keep_last and keep_last > 0 and is_main:
+                # the write in flight is committed before an older one goes
+                wait_for_checkpoints()
                 _prune(save_dir, keep_last)
         metrics = trainer.evaluate(val_loader, post_process=pp)
         if nodes > 1:
@@ -217,9 +218,10 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
             save_and_print_metrics(metrics, "metrics_output.txt")
         if train_spec.save_best and metrics["mAP"] > trainer.best_map:
             trainer.best_map = metrics["mAP"]
-            trainer.save_checkpoint(str(save_dir / "best_model.msgpack"), epoch)
+            trainer.save_checkpoint(str(save_dir / f"best_model{suffix}"), epoch, backend=backend)
             if is_main:
                 print(f"New best mAP {trainer.best_map:.4f} — saved best_model")
+    wait_for_checkpoints()  # the background write in flight is committed before returning
     return trainer
 
 

@@ -35,7 +35,7 @@ optimizer's own configuration:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -188,13 +188,15 @@ def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     return model
 
 
-def export_jax_variables(model: nn.Module, empty: bool = False) -> Dict:
+def export_jax_variables(model: nn.Module, empty: bool = False,
+                         state: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
     """The model's ``{"params", "batch_stats"}`` tree in JAX layout, numpy
     (f32, or f64 for a float64 model) on the host. With `empty` the leaves
     are uninitialised arrays of the same shapes and dtypes: a restore's
-    template."""
+    template. `state`, a copy of the model's state_dict (a checkpoint's
+    host snapshot), is read in place of the model's own."""
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
-    for key, value in model.state_dict().items():
+    for key, value in (model.state_dict() if state is None else state).items():
         if key.endswith("num_batches_tracked"):
             continue
         collection, path, to_jax = _source(model, key)
@@ -217,11 +219,13 @@ def _param_paths(optimizer, model: nn.Module) -> List[Tuple[Tuple[str, ...], Cal
     return out
 
 
-def opt_state_to_jax(optimizer, model: nn.Module, empty: bool = False) -> Dict:
+def opt_state_to_jax(optimizer, model: nn.Module, empty: bool = False, moments: Optional[Tuple] = None) -> Dict:
     """The optimizer's state as the ``to_state_dict`` tree of the JAX tx (see
     the module docstring); numpy on the host, counts int32 0-d arrays. With
     `empty` the moment and accumulator leaves are uninitialised arrays of
-    their shapes and dtypes: a restore's template."""
+    their shapes and dtypes: a restore's template. `moments`, a pair of
+    values, stands in place of the ``mu`` and ``nu`` trees (a directory
+    checkpoint's skeleton, whose moments lie in flat shards)."""
     paths = _param_paths(optimizer, model)
 
     def tree(tensors) -> Dict:
@@ -236,12 +240,16 @@ def opt_state_to_jax(optimizer, model: nn.Module, empty: bool = False) -> Dict:
         raise ValueError("AdamW's step disagrees with the optimizer's update count")
     if empty:
         mu = nu = acc = params  # only their shapes are read
+    elif moments is not None:
+        mu = nu = None
+        acc = optimizer._acc if optimizer._acc is not None else [torch.zeros_like(p) for p in params]
     else:
         mu = [s["exp_avg"] if s else torch.zeros_like(p) for s, p in zip(states, params)]
         nu = [s["exp_avg_sq"] if s else torch.zeros_like(p) for s, p in zip(states, params)]
         acc = optimizer._acc if optimizer._acc is not None else [torch.zeros_like(p) for p in params]
     count = np.asarray(optimizer.updates, np.int32)
-    adamw = {"0": {"count": count, "mu": tree(mu), "nu": tree(nu)}, "1": {},
+    mu_tree, nu_tree = moments if moments is not None else (tree(mu), tree(nu))
+    adamw = {"0": {"count": count, "mu": mu_tree, "nu": nu_tree}, "1": {},
              "2": {"count": count.copy()} if optimizer.scheduled else {}}
     inner = {"0": {}, "1": adamw} if optimizer.max_norm is not None else adamw
     if optimizer.every_k == 1:
@@ -255,10 +263,12 @@ def opt_state_to_jax(optimizer, model: nn.Module, empty: bool = False) -> Dict:
     }
 
 
-def opt_state_from_jax(optimizer, model: nn.Module, state: Dict) -> None:
+def opt_state_from_jax(optimizer, model: nn.Module, state: Dict, moments: bool = True) -> None:
     """Load a JAX tx state (`opt_state_to_jax`'s form) into the optimizer, in
     place: AdamW's moments and step, the update count that the schedule
-    reads, and `MultiSteps`' micro-step and running mean."""
+    reads, and `MultiSteps`' micro-step and running mean. Without `moments`
+    AdamW's state is left alone and ``mu`` / ``nu`` are not read (a
+    skeleton's counts and running mean)."""
     paths = _param_paths(optimizer, model)
     inner = state["inner_opt_state"] if optimizer.every_k > 1 else state
     adamw = inner["1"] if optimizer.max_norm is not None else inner
@@ -279,7 +289,8 @@ def opt_state_from_jax(optimizer, model: nn.Module, state: Dict) -> None:
 
     # torch keeps AdamW's step on the host, in the default float type
     step_dtype = torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
-    for p, mu, nu in zip(optimizer.params, tensors(adamw["0"]["mu"]), tensors(adamw["0"]["nu"])):
+    for p, mu, nu in zip(optimizer.params, tensors(adamw["0"]["mu"]) if moments else (),
+                         tensors(adamw["0"]["nu"]) if moments else ()):
         optimizer.adamw.state[p] = {
             "step": torch.tensor(float(count), dtype=step_dtype), "exp_avg": mu, "exp_avg_sq": nu,
         }
@@ -287,3 +298,17 @@ def opt_state_from_jax(optimizer, model: nn.Module, state: Dict) -> None:
     if optimizer.every_k > 1:
         optimizer.mini_step = int(state["mini_step"])
         optimizer._acc = tensors(state["acc_grads"]) if optimizer.mini_step else None
+
+
+def flat_layout(optimizer, model: nn.Module) -> Dict:
+    """How the optimizer's parameters lie end to end in one flat vector (the
+    order and torch shapes that ZeRO-1 shards): each one's flax path in
+    ``params`` ("/"-joined), its torch shape, and the axis order that takes
+    it to the JAX layout (``np.transpose(torch_array, perm)``)."""
+    out: Dict[str, List] = {"paths": [], "shapes": [], "perms": []}
+    for p, (path, to_jax, _) in zip(optimizer.params, _param_paths(optimizer, model)):
+        probe = np.empty(tuple(range(2, 2 + p.dim())), np.int8)  # distinct sizes name the axes
+        out["paths"].append("/".join(path))
+        out["shapes"].append(list(p.shape))
+        out["perms"].append([s - 2 for s in to_jax(probe).shape])
+    return out

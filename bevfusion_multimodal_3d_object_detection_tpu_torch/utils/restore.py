@@ -2,7 +2,9 @@
 
 Port of ``bevfusion_multimodal_3d_object_detection_tpu/utils/restore.py:18-82``:
 build the UNFOLDED model, restore a msgpack checkpoint (either package's)
-into its tree, or without one seed it and load the pretrained camera trunk
+or a directory checkpoint of the port's ``orbax`` backends (its
+``variables.msgpack`` alone; a JAX orbax directory raises, naming the way
+through msgpack) into its tree, or without one seed it and load the pretrained camera trunk
 where configured, and fold the camera BatchNorms when asked. A ``.pth`` or
 ``.pt`` file is a reference-framework torch checkpoint, migrated by
 `utils.reference_convert` over the seeded tree. A failed restore raises; it

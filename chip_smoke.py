@@ -223,6 +223,26 @@ Phases (any failure raises and the script exits non-zero):
    bf16, uint8 cameras, on phase 4's 19 requests, B1 counted (2 a batch),
    the answers held to one device's at batch 8 at scores 1e-4 and boxes
    1e-3, and the batch latency beside one device's.
+18. the directory checkpoint backends (``train.checkpoint.backend: orbax |
+   orbax_async``): (a) two rank processes (this script with --ckpt-rank) on
+   cuda:0 over gloo laid out as two nodes, ``multi_host`` and
+   ``shard_optimizer``, phase 9's small model without LiDAR in float64:
+   one step, an ``orbax`` and an ``orbax_async`` checkpoint (the next step
+   run while the latter writes), each committed whole with each rank's
+   files only its own part (`ZeroOptimizer.gathered` raising meanwhile);
+   an async writer
+   that keeps references and a commit that does not wait for every rank
+   shown to fail those checks; then in a fresh process group each
+   checkpoint restored bit for bit and its next step held to the
+   uninterrupted one at phase 9's limits; (b) each restored at world 1 in
+   this process (every shard read; parameters and each rank's moment slice
+   by sha256), its next step held to one process's second step, and a
+   restore that skips the re-cut shown to fail; (c) the training CLI at
+   full width on phase 11's tree, one epoch under ``orbax``, resumed under
+   ``orbax_async`` (restore bit for bit, keep_last, B1 on the resumed
+   validation), the time each save blocked the loop and each snapshot
+   beside phase 11's msgpack writes, and `InferenceServer` started from
+   ``best_model/`` (B1 counted) against the Trainer's eval step on it.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.
@@ -234,6 +254,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import hashlib
 import io
 import json
 import os
@@ -1680,8 +1701,8 @@ def traced_trainer(record: dict):
             out = orig[name](self, *args, **kwargs)
             torch.cuda.synchronize()
             entry = {"s": time.perf_counter() - t, "b1_launches": pf.pointnet_fused.launches - b1}
-            if name.endswith("checkpoint"):
-                entry["bytes"] = Path(args[0]).stat().st_size
+            if name.endswith("checkpoint"):  # a background write may not be there yet
+                entry["bytes"] = dir_size(Path(args[0])) if Path(args[0]).exists() else None
             if name == "load_checkpoint":
                 entry["state"] = trainer_state(self)
                 entry["epoch"] = out
@@ -3285,18 +3306,21 @@ def dp_rank(job_path: str) -> int:
     return 0
 
 
-def rank_processes(flag: str, job: dict, tmp: Path, what: str, timeout_s: float = 420.0) -> list:
+def rank_processes(flag: str, job: dict, tmp: Path, what: str, timeout_s: float = 420.0, nodes: int = 1) -> list:
     """Two processes of this script (``flag`` JOB) laid out by torchrun's
-    environment on a free port, each writing ``rank{r}.json`` beside
-    ``job["out"]``; their results, rank by rank."""
+    environment on a free port (as `nodes` nodes), each writing
+    ``rank{r}.json`` beside ``job["out"]``; their results, rank by rank."""
     job_path = tmp / f"{flag.strip('-')}_job.json"
     job_path.write_text(json.dumps(job))
     port = free_port()
     procs = []
+    per_node = 2 // nodes
     for rank in range(2):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2",
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank % per_node),
+                   LOCAL_WORLD_SIZE=str(per_node), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                    PYTHONPATH=str(Path(__file__).resolve().parent))
+        if nodes > 1:
+            env["GROUP_RANK"] = str(rank // per_node)
         procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag, str(job_path)],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
     try:
@@ -3667,6 +3691,477 @@ def view_parallelism(tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the directory checkpoint backends (orbax, orbax_async)
+# ---------------------------------------------------------------------------
+
+CKPT_MUTANTS = ("references", "no_recut", "commit_early")
+
+
+@contextlib.contextmanager
+def checkpoint_mutant(name, rank: int = 0):
+    """A directory checkpoint gone wrong in one way: "references" snapshots
+    references to the live tensors instead of host copies (the writer then
+    serializes a later moment's state); "no_recut" restores the moments
+    from the one shard file of its slice's index, as if the files had been
+    cut for the current world; "commit_early" has global rank 0 commit
+    without waiting for the other ranks (rank 1, a slow rank, writing once
+    rank 0 has committed, or after 30 s). None: as it is."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.train import checkpoint as ckpt
+
+    undo = []
+
+    def patch(owner, attr, value):
+        undo.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, value)
+
+    if name == "references":
+        patch(train_loop.HostBuffers, "copy", lambda self, tensors: dict(tensors))
+    elif name == "no_recut":
+        def one_file(path, meta, lo, hi):
+            n, size = meta["opt_state_files"], meta["moments"]["shard_numel"]
+            shard = msgpack_restore((Path(path) / ckpt.opt_state_file(min(lo // size, n - 1), n)).read_bytes())
+            out = [np.zeros(hi - lo, np.dtype(meta["moments"]["dtype"])) for _ in range(2)]
+            for dst, key in zip(out, ("exp_avg", "exp_avg_sq")):
+                m = min(hi - lo, len(shard[key]))
+                dst[:m] = shard[key][:m]
+            return out[0], out[1]
+
+        patch(ckpt, "read_moments", one_file)
+    elif name == "commit_early":
+        wait, write = ckpt._await, ckpt._write_files
+        patch(ckpt, "_await", lambda store, key, failed, count=0: None if key.endswith("/written")
+              else wait(store, key, failed, count))
+        def late(directory, files):
+            final = directory.with_name(directory.name.rsplit(ckpt.STAGING, 1)[0])
+            deadline = time.monotonic() + 30.0
+            while not final.exists() and time.monotonic() < deadline:
+                time.sleep(0.01)
+            return write(directory, files)
+
+        if rank == 1:
+            patch(ckpt, "_write_files", late)
+    elif name is not None:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        for owner, attr, value in reversed(undo):
+            setattr(owner, attr, value)
+
+
+@contextlib.contextmanager
+def checkpoint_files(hold=None):
+    """The names of the files this process writes into directory checkpoints
+    in the block, `ZeroOptimizer.gathered` raising meanwhile; with `hold` (a
+    `threading.Event`) each write first waits for it."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel.zero import ZeroOptimizer
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.train import checkpoint as ckpt
+
+    names, write, gathered = [], ckpt._write_files, ZeroOptimizer.gathered
+
+    def recorded(directory, files):
+        if hold is not None:
+            hold.wait()
+        files = files() if callable(files) else files
+        names.extend(files)
+        return write(directory, files)
+
+    def no_gather(self):
+        raise AssertionError("ZeroOptimizer.gathered called for a directory checkpoint")
+
+    ckpt._write_files, ZeroOptimizer.gathered = recorded, no_gather
+    try:
+        yield names
+    finally:
+        if hold is not None:
+            hold.set()
+            ckpt.wait_for_checkpoints()
+        ckpt._write_files, ZeroOptimizer.gathered = write, gathered
+
+
+def ckpt_config(config) -> dict:
+    """Phase 9's small base.yaml model without its LiDAR branch (whose
+    512 -> 80,000 dense layer, which no config key narrows, would make each
+    float64 checkpoint ~1 GB; the format and the commit do not depend on the
+    width, and phase 18c runs the full tri-modal width) with ``multi_host``
+    and ``shard_optimizer``."""
+    cfg = small_train_config(config)
+    cfg["model"]["modality_config"] = "camera+radar"
+    cfg["parallel"].update(multi_host=True, shard_optimizer=True)
+    return cfg
+
+
+def ckpt_trainer(config, group=None, device="cuda:0") -> Trainer:
+    """A Trainer of `config`'s model in float64 on `device` (seeded
+    weights), ZeRO-1 over `group` when given."""
+    spec, compat, ts = DetectorSpec.from_config(config), CompatFlags.from_config(config), TrainSpec.from_config(config)
+    model = MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding).double()
+    return Trainer(model, ts, compat, device=device, process_group=group,
+                   shard_optimizer=group is not None).init_state()
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}[a.element_size()]
+    return torch.equal(a.contiguous().view(as_int), b.contiguous().view(as_int))
+
+
+def state_digest(trainer) -> str:
+    """sha256 of the model's parameters and BatchNorm statistics, in order."""
+    h = hashlib.sha256()
+    for k, v in trainer.model.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def flat_moments(trainer) -> tuple:
+    """The flat exp_avg and exp_avg_sq in ZeRO-1's order: the rank's slice
+    under ZeRO-1, else the whole vector."""
+    opt = trainer.optimizer
+    if trainer.shard_optimizer:
+        return opt.shard_moments()
+    return tuple(torch.cat([opt.adamw.state[p][k].reshape(-1) for p in opt.params]) for k in ("exp_avg", "exp_avg_sq"))
+
+
+def moment_digest(mu: torch.Tensor, nu: torch.Tensor) -> str:
+    h = hashlib.sha256()
+    for t in (mu, nu):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def committed_whole(path: Path, n: int) -> bool:
+    """Whether `path` is a committed directory checkpoint with all `n`
+    moment shards and they read back."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.train import checkpoint as ckpt
+
+    want = {"COMMITTED", "meta.msgpack", "variables.msgpack", *(ckpt.opt_state_file(i, n) for i in range(n))}
+    if not path.is_dir() or {p.name for p in path.iterdir()} != want:
+        return False
+    meta = ckpt.read_meta(path)
+    total = meta["moments"]["numel"]
+    mu, nu = ckpt.read_moments(path, meta, 0, total)
+    return len(mu) == total and bool(np.isfinite(mu).all() and np.isfinite(nu).all())
+
+
+def ckpt_rank(job_path: str) -> int:
+    """18's rank: two processes on cuda:0 over gloo laid out as two nodes
+    (``multi_host``, ZeRO-1 over both), `ckpt_config`'s model in float64, node r
+    training on rows [2r, 2r + 2) of a 4-row batch. One step; an ``orbax``
+    and an ``orbax_async`` checkpoint of that state (the second step run
+    while the async one writes); each must be committed whole, and each
+    rank must have written only its part. The "references" and
+    "commit_early" mutants. Then, in a fresh process group, each checkpoint
+    restored into a fresh trainer (parameters and moment slice equal the
+    saved ones bit for bit) and its next step held to the uninterrupted
+    second step at phase 9's limits (rank 0). Writes a JSON result."""
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel import make_data_group, maybe_initialize
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.train import checkpoint as ckpt
+
+    job = json.loads(Path(job_path).read_text())
+    work = Path(job["work"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, device = int(os.environ["RANK"]), "cuda:0"
+    torch.cuda.set_device(device)
+    maybe_initialize(True, backend="gloo", device=device, timeout_s=300)
+    config = ckpt_config(load_config("configs/base.yaml"))
+    spec, ts = DetectorSpec.from_config(config), TrainSpec.from_config(config)
+    full = train_batch(spec, np.random.RandomState(9), 4, 16, 5)
+    batch = {k: v[2 * rank:2 * rank + 2] if isinstance(v, np.ndarray) else v for k, v in full.items()}
+    out = {"device": device, "backends": {}, "mutants": {}}
+    group = make_data_group(multi_host=True)
+    live = ckpt_trainer(config, group)
+    live.train_step(batch)
+    saved_state = {k: v.detach().clone() for k, v in live.model.state_dict().items()
+                   if not k.endswith("num_batches_tracked")}
+    saved_mu = [m.clone() for m in live.optimizer.shard_moments()]
+    out["saved"] = {"state": state_digest(live), "moments": moment_digest(*saved_mu), "lo": live.optimizer.lo,
+                    "hi": live.optimizer.hi}
+    for backend in ckpt.DIRECTORY_BACKENDS:
+        path = work / backend
+        with checkpoint_files() as names:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            live.save_checkpoint(str(path), 0, backend=backend)
+            blocked = time.perf_counter() - t
+            if backend == "orbax_async":  # the next step runs while the writer writes
+                losses = live.train_step(batch)
+            t = time.perf_counter()
+            ckpt.wait_for_checkpoints()
+            fence = time.perf_counter() - t
+        torch.distributed.barrier()
+        out["backends"][backend] = {
+            "written": sorted(names), "bytes": sum((path / n).stat().st_size for n in names),
+            "blocked_s": blocked, "fence_s": fence, "committed_whole": committed_whole(path, 2)}
+    uninterrupted = step_record(live.train_step, live.model, losses)  # (ZeRO-1: gathers, for the comparison)
+    # the mutants, each against the check it must fail
+    hold = threading.Event()
+    with checkpoint_mutant("references"), checkpoint_files(hold):
+        before = state_digest(live), moment_digest(*live.optimizer.shard_moments())
+        live.save_checkpoint(str(work / "references"), 0, backend="orbax_async")
+        live.train_step(batch)  # changes the state in place while the writer waits
+        hold.set()
+        ckpt.wait_for_checkpoints()
+    torch.distributed.barrier(group.group)
+    probe = ckpt_trainer(config, group)
+    probe.load_checkpoint(str(work / "references"))
+    out["mutants"]["references"] = {"fails": (state_digest(probe), moment_digest(*probe.optimizer.shard_moments()))
+                                    != before}
+    del probe
+    try:
+        with checkpoint_mutant("commit_early", rank):
+            live.save_checkpoint(str(work / "commit_early"), 0, backend="orbax")
+        whole = committed_whole(work / "commit_early", 2)
+        out["mutants"]["commit_early"] = {"fails": not whole, "raised": None}
+    except Exception as e:  # the late rank finds its staging directory gone
+        out["mutants"]["commit_early"] = {"fails": True, "raised": repr(e)[:200]}
+    del live
+    torch.cuda.empty_cache()
+    # a fresh process group: the resume
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    maybe_initialize(True, coordinator_address=f"127.0.0.1:{job['port2']}", backend="gloo", device=device,
+                     timeout_s=300)
+    group = make_data_group(multi_host=True)
+    for backend in ckpt.DIRECTORY_BACKENDS:
+        resumed = ckpt_trainer(config, group)
+        with checkpoint_files():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            epoch = resumed.load_checkpoint(str(work / backend))
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t
+        res = out["backends"][backend]
+        res.update(read_s=read_s, epoch=epoch, updates=resumed.optimizer.updates, step=resumed.step,
+                   state_bits_equal=all(bits_equal(v, saved_state[k]) for k, v in resumed.model.state_dict().items()
+                                        if k in saved_state),
+                   moments_bits_equal=all(bits_equal(a, b) for a, b in zip(resumed.optimizer.shard_moments(), saved_mu)))
+        record = step_record(resumed.train_step, resumed.model, resumed.train_step(batch))
+        if rank == 0:
+            res["next_step"] = compare_step(record, uninterrupted, None, ts.learning_rate,
+                                            f"18 {backend} resumed at world 2", 1e-4)
+        del resumed, record
+        torch.cuda.empty_cache()
+    Path(job["out"]).with_name(f"rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def ckpt_world_one(config, work: Path, ranks: list) -> dict:
+    """18b: each two-rank checkpoint restored at world 1 in this process (no
+    process group, no ZeRO: every shard read), its parameters and each
+    rank's moment slice equal to what the ranks saved (sha256), and its
+    next step held at phase 9's limits to one process's uninterrupted second
+    step at the global batch of 4; the "no_recut" mutant."""
+    config = ckpt_config(config)
+    spec, ts = DetectorSpec.from_config(config), TrainSpec.from_config(config)
+    batch = train_batch(spec, np.random.RandomState(9), 4, 16, 5)
+    single = ckpt_trainer(config)
+    first = step_record(single.train_step, single.model, single.train_step(batch))
+    second = step_record(single.train_step, single.model, single.train_step(batch))
+    del single
+    out = {}
+
+    def digests(trainer) -> dict:
+        mu, nu = flat_moments(trainer)
+        return {"state": state_digest(trainer),
+                "moments": [moment_digest(mu[r["saved"]["lo"]:r["saved"]["hi"]], nu[r["saved"]["lo"]:r["saved"]["hi"]])
+                            for r in ranks]}
+
+    want = {"state": ranks[0]["saved"]["state"], "moments": [r["saved"]["moments"] for r in ranks]}
+    for backend in ("orbax", "orbax_async"):
+        resumed = ckpt_trainer(config)
+        t = time.perf_counter()
+        resumed.load_checkpoint(str(work / backend))
+        read_s = time.perf_counter() - t
+        got = digests(resumed)
+        if got != want or (resumed.optimizer.updates, resumed.step) != (1, 1):
+            raise AssertionError(f"18b {backend} at world 1: restored {got} (counts {resumed.optimizer.updates}, "
+                                 f"{resumed.step}), saved {want}")
+        record = step_record(resumed.train_step, resumed.model, resumed.train_step(batch))
+        out[backend] = {"read_s": read_s, "next_step": compare_step(
+            record, second, first["mu"], ts.learning_rate, f"18b {backend} resumed at world 1", 1e-4)}
+        del resumed, record
+        torch.cuda.empty_cache()
+    with checkpoint_mutant("no_recut"):
+        probe = ckpt_trainer(config)
+        probe.load_checkpoint(str(work / "orbax"))
+    out["no_recut_fails"] = digests(probe) != want
+    del probe
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def timed_snapshots(times: list):
+    """Host seconds of each `Trainer._snapshot` (the device-to-host copy a
+    directory checkpoint blocks on) in the block."""
+    snap = Trainer._snapshot
+
+    def timed(self):
+        t = time.perf_counter()
+        out = snap(self)
+        times.append(time.perf_counter() - t)
+        return out
+
+    Trainer._snapshot = timed
+    try:
+        yield times
+    finally:
+        Trainer._snapshot = snap
+
+
+def dir_size(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.iterdir()) if path.is_dir() else path.stat().st_size
+
+
+def directory_training(tree_config: dict, tmp: Path) -> dict:
+    """18c: the training CLI at phase 11's full width (f32) on phase 11's
+    tree: one epoch under ``orbax`` (its epoch checkpoint and best_model
+    directories), then resumed under ``orbax_async`` into epoch 1
+    (keep_last 1 after the fence): the restore bit for bit, B1 on every
+    validation batch, the committed directories left; the time the loop
+    was blocked by each save and each snapshot; then `InferenceServer`
+    started from ``best_model/`` (B1 counted) held to the Trainer's f32 eval
+    step on that directory at phase 11's 1e-4."""
+    work = tmp / "directory_checkpoints"
+    work.mkdir()
+    cfg = copy.deepcopy(tree_config)
+    cfg["train"]["checkpoint"].update(save_dir=str(work / "checkpoints"), backend="orbax")
+    cfg["train"]["logging"]["log_dir"] = str(work / "logs")
+    cfg["train"]["num_epochs"] = 1
+    cfg["train"]["resume"]["enable"] = False
+    ts, compat, spec = TrainSpec.from_config(cfg), CompatFlags.from_config(cfg), DetectorSpec.from_config(cfg)
+    record, snaps, cwd = {}, [], os.getcwd()
+    os.chdir(work)
+    try:
+        with traced_trainer(record), timed_snapshots(snaps):
+            first = train_detect.main(config=cfg, device="cuda")
+            saved = trainer_state(first)
+            del first
+            torch.cuda.empty_cache()
+            cfg2 = copy.deepcopy(cfg)
+            cfg2["train"]["checkpoint"]["backend"] = "orbax_async"
+            cfg2["train"]["num_epochs"] = 2
+            cfg2["train"]["resume"]["enable"] = True
+            second = train_detect.main(config=cfg2, device="cuda")
+            steps = second.step
+            del second
+            torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+    restored = record["load_checkpoint"]
+    if len(restored) != 1 or restored[0]["epoch"] != 0 or steps != 4:
+        raise AssertionError(f"18c: restored {[r['epoch'] for r in restored]}, {steps} steps")
+    n_arrays = assert_states_equal(restored[0]["state"], saved)
+    ckpts = work / "checkpoints"
+    files = sorted(p.name for p in ckpts.iterdir())
+    if files != ["best_model", "checkpoint_epoch_1"] or not all(committed_whole_dir(ckpts / f) for f in files):
+        raise AssertionError(f"18c: after keep_last 1 the checkpoints are {files}")
+    val_batches = (4 + ts.batch_size - 1) // ts.batch_size
+    resumed_b1 = [e["b1_launches"] for e in record["evaluate"][1:]]
+    if resumed_b1 != [2 * val_batches]:
+        raise AssertionError(f"18c: B1 launches in the resumed validations {resumed_b1}")
+    saves = record["save_checkpoint"]  # orbax: epoch 0 and best_model; orbax_async: epoch 1 (and best_model)
+    out = {"restored_arrays_bit_exact": n_arrays, "resumed_validation_b1_launches": resumed_b1,
+           "orbax_blocked_s": [e["s"] for e in saves[:2]], "orbax_async_blocked_s": [e["s"] for e in saves[2:]],
+           "snapshot_s": snaps, "bytes": dir_size(ckpts / "checkpoint_epoch_1"),
+           "restore_s": restored[0]["s"]}
+    # serve best_model/ in f32 and hold it to the Trainer's eval step on it
+    best = str(ckpts / "best_model")
+    val_ds = NuScenesDataset(split="val", config=cfg, seed=ts.seed, emit_uint8=True)
+    samples = [val_ds[i] for i in range(len(val_ds))]
+    server = InferenceServer(config=cfg, model_path=best, batch_size=len(samples), score_threshold=0.0,
+                             use_bf16=False, fold_bn=False, device="cuda")
+    b1 = pf.pointnet_fused.launches
+    got = server._run_batch([{k: s[k] for k in ("camera_imgs", "lidar_points", "radar_points")} for s in samples])
+    out["server_b1_launches"] = pf.pointnet_fused.launches - b1
+    del server
+    trainer = Trainer(MultiModal3DDetector(spec, mask_padding=not compat.unmasked_point_padding),
+                      ts, compat, device="cuda").init_state()
+    trainer.load_checkpoint(best)
+    step = make_eval_step(trainer.model, compat, max_detections=spec.centernet.max_detections,
+                          eval_path_decode=True, device="cuda")
+    want = decode_to_host(step(collate_fn(samples)), score_thresh=0.0)
+    del trainer, step
+    torch.cuda.empty_cache()
+    scale = max(float(np.abs(w["scores"]).max()) for w in want)
+    err = max(float(np.abs(g["scores"] - w["scores"]).max()) for g, w in zip(got, want))
+    if out["server_b1_launches"] != 2 or any(len(g["scores"]) != len(w["scores"]) for g, w in zip(got, want)) \
+            or not err <= 1e-4 * scale:
+        raise AssertionError(f"18c: the server from best_model/ launched B1 {out['server_b1_launches']} times, "
+                             f"scores within {err} of the eval step's (scale {scale})")
+    out["served_score_err"] = err
+    return out
+
+
+def committed_whole_dir(path: Path) -> bool:
+    """A committed, unsharded directory checkpoint with its four files."""
+    return path.is_dir() and {p.name for p in path.iterdir()} == {
+        "COMMITTED", "meta.msgpack", "variables.msgpack", "opt_state.0-of-1.msgpack"}
+
+
+def directory_checkpoints(config, tree_config: dict, tmp: Path, msgpack_write_s: list) -> dict:
+    """Phase 18."""
+    work = tmp / "ckpt_ranks"
+    work.mkdir()
+    t = time.perf_counter()
+    ranks = rank_processes("--ckpt-rank", {"out": str(work / "ckpt_out.json"), "work": str(work),
+                                           "port2": free_port()}, work, "18", timeout_s=600, nodes=2)
+    out = {"two_ranks_s": time.perf_counter() - t}
+    for rank, res in enumerate(ranks):
+        want = (["meta.msgpack", "opt_state.0-of-2.msgpack", "variables.msgpack"] if rank == 0
+                else ["opt_state.1-of-2.msgpack"])
+        for backend, b in res["backends"].items():
+            if b["written"] != want or not b["committed_whole"]:
+                raise AssertionError(f"18a {backend} rank {rank} wrote {b['written']} (committed whole: "
+                                     f"{b['committed_whole']})")
+            if (b["epoch"], b["updates"], b["step"]) != (0, 1, 1) or not (b["state_bits_equal"]
+                                                                          and b["moments_bits_equal"]):
+                raise AssertionError(f"18a {backend} rank {rank} resumed at world 2: {b}")
+        for m, r in res["mutants"].items():
+            if not r["fails"]:
+                raise AssertionError(f"18a the {m} mutant passed its check on rank {rank}")
+    out["ranks"] = ranks
+    t = time.perf_counter()
+    out["world_one"] = ckpt_world_one(config, work, ranks)
+    out["world_one_s"] = time.perf_counter() - t
+    if not out["world_one"]["no_recut_fails"]:
+        raise AssertionError("18b the no_recut mutant passed its check")
+    t = time.perf_counter()
+    out["training_cli"] = cli = directory_training(tree_config, tmp)
+    out["training_cli_s"] = time.perf_counter() - t
+    r0, r1 = ranks
+    for backend in ("orbax", "orbax_async"):
+        a, b = r0["backends"][backend], r1["backends"][backend]
+        log(f"  18a {backend}, two gloo ranks on cuda:0 as two nodes (multi_host, ZeRO-1), phase 9's small "
+            f"camera+radar model in float64: "
+            f"rank 0 wrote {a['written']} ({a['bytes'] / 2 ** 20:.1f} MiB), rank 1 {b['written']} "
+            f"({b['bytes'] / 2 ** 20:.1f} MiB); blocked {a['blocked_s']:.3f} / {b['blocked_s']:.3f} s, fence "
+            f"{a['fence_s']:.3f} / {b['fence_s']:.3f} s; resumed in a fresh group bit for bit (read "
+            f"{a['read_s']:.2f} / {b['read_s']:.2f} s), next step at {json.dumps(a['next_step'])} of phase 9's "
+            f"limits; at world 1: read {out['world_one'][backend]['read_s']:.2f} s, next step at "
+            f"{json.dumps(out['world_one'][backend]['next_step'])} [{card()}]")
+    log(f"  18a mutants failing their checks: references {r0['mutants']['references']['fails']}, commit_early "
+        f"{r0['mutants']['commit_early']['fails']} (rank 1: {r1['mutants']['commit_early']['raised']}); 18b "
+        f"no_recut {out['world_one']['no_recut_fails']}")
+    log(f"  18c training CLI at full width (f32), the loop blocked per save: msgpack "
+        f"{', '.join(f'{s:.3f}' for s in msgpack_write_s)} s (phase 11), orbax "
+        f"{', '.join(f'{s:.3f}' for s in cli['orbax_blocked_s'])} s, orbax_async "
+        f"{', '.join(f'{s:.3f}' for s in cli['orbax_async_blocked_s'])} s; snapshots "
+        f"{', '.join(f'{s:.3f}' for s in cli['snapshot_s'])} s; {cli['bytes'] / 2 ** 20:.1f} MiB a checkpoint "
+        f"(one rank); restore {cli['restore_s']:.2f} s bit for bit over {cli['restored_arrays_bit_exact']} arrays; "
+        f"B1 {cli['resumed_validation_b1_launches']} in the resumed validations, {cli['server_b1_launches']} in the "
+        f"server from best_model/ (scores within {cli['served_score_err']:.2e}) [{card()}]")
+    log(f"  18a took {out['two_ranks_s']:.1f} s (two processes), 18b {out['world_one_s']:.1f} s, 18c "
+        f"{out['training_cli_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3792,6 +4287,13 @@ def main() -> int:
         log(f"  phase 17 took {time.perf_counter() - t:.1f} s")
         log("  " + json.dumps({"view_parallelism": view}))
 
+        log("phase 18: the directory checkpoint backends (orbax, orbax_async: two ranks as two nodes with "
+            "ZeRO-1, resumed at world 2 and 1; the training CLI and a server from best_model/)")
+        t = time.perf_counter()
+        dirs = directory_checkpoints(config, tree_config, Path(tmp), entry_point["checkpoint_write_s"])
+        log(f"  phase 18 took {time.perf_counter() - t:.1f} s")
+        log("  " + json.dumps({"directory_checkpoints": {k: v for k, v in dirs.items() if k != "ranks"}}))
+
     def entry(name, launches, err, t):
         source, replaces = KERNELS[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3833,7 +4335,10 @@ def main() -> int:
              view_parallel_launches={"eval_step_" + k: [v["launches"]["pointnet_fused"],
                                                         view["rank1_eval"][k]["launches"]["pointnet_fused"]]
                                      for k, v in view["eval"].items()} | {
-                 "serving_grid": view["serving"]["grid_launches"]}),
+                 "serving_grid": view["serving"]["grid_launches"]},
+             directory_checkpoint_launches={
+                 "resumed_validations": dirs["training_cli"]["resumed_validation_b1_launches"],
+                 "server_best_model_dir": dirs["training_cli"]["server_b1_launches"]}),
         # launches: phase 7, the geometric eval path
         dict(entry("bev_pool_weighted", geo["launches"]["bev_pool_weighted_rows"],
                    pool_err["bev_pool_weighted"], pools["bev_pool_weighted"]),
@@ -3862,4 +4367,6 @@ if __name__ == "__main__":
         sys.exit(dp_rank(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--view-rank":  # a rank process of phase 17
         sys.exit(view_rank(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ckpt-rank":  # a rank process of phase 18
+        sys.exit(ckpt_rank(sys.argv[2]))
     sys.exit(main())

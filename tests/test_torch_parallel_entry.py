@@ -23,7 +23,7 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch import train_detect
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import DataLoader
 from bevfusion_multimodal_3d_object_detection_tpu_torch.parallel import make_data_group
 from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import InferenceServer
-from bevfusion_multimodal_3d_object_detection_tpu_torch.train.checkpoint import msgpack_restore
+from bevfusion_multimodal_3d_object_detection_tpu_torch.train.checkpoint import msgpack_restore, read_directory
 from chip_smoke import detections_agree, make_samples, tree_leaves
 from torch_parallel_worker import launch
 from torch_trainer_helpers import tree_config, write_test_tree
@@ -141,7 +141,7 @@ def _largest_error(got: dict, want: dict) -> float:
 def cli_runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("cli")
     data = write_test_tree(tmp / "data", samples_per_split=4, n_points=400)
-    dirs = {k: tmp / k for k in ("single", "dp", "zero", "view", "view_warn", "multi_host")}
+    dirs = {k: tmp / k for k in ("single", "dp", "zero", "view", "view_warn", "multi_host", "multi_host_zero")}
     cfgs = {k: tree_config(d, data, modality="camera+radar") for k, d in dirs.items()}
     for d in dirs.values():
         d.mkdir()
@@ -152,6 +152,10 @@ def cli_runs(tmp_path_factory):
     cfgs["view_warn"]["model"]["bev_fusion"].update(bev_h=15, bev_w=15)
     cfgs["multi_host"]["parallel"]["multi_host"] = True
     cfgs["multi_host"]["train"]["batch_size"] = 1  # two nodes of one row: the global batch of 2
+    cfgs["multi_host_zero"] = copy.deepcopy(cfgs["multi_host"])
+    cfgs["multi_host_zero"]["parallel"]["shard_optimizer"] = True
+    cfgs["multi_host_zero"]["train"]["checkpoint"].update(backend="orbax", save_dir=str(dirs["multi_host_zero"] / "checkpoints"))
+    cfgs["multi_host_zero"]["train"]["logging"]["log_dir"] = str(dirs["multi_host_zero"] / "logs")
 
     def single():
         cwd = os.getcwd()
@@ -165,7 +169,9 @@ def cli_runs(tmp_path_factory):
                             for k in ("dp", "zero", "view", "view_warn")], during=single)
     nodes = launch([("train_cli", dict(config=cfgs["multi_host"], workdir=str(dirs["multi_host"]))),
                     ("process_means", dict(values={"a": 1.0, "b": 3.0})), ("view_across_nodes", {}),
-                    ("process_means", dict(values={"c": 0.1, "d": 1 / 3}))], nodes=2)
+                    ("process_means", dict(values={"c": 0.1, "d": 1 / 3})),
+                    ("train_cli", dict(config=cfgs["multi_host_zero"], workdir=str(dirs["multi_host_zero"]),
+                                       directory_writes=True))], nodes=2)
     return {"dirs": dirs, "single": trainer, "node": node, "nodes": nodes}
 
 
@@ -201,6 +207,28 @@ def test_train_cli_in_two_processes_equals_one(cli_runs, run):
     want = _checkpoint(dirs["single"], "checkpoint_epoch_0.msgpack")
     assert _largest_error(got["batch_stats"], want["batch_stats"]) <= 1e-3
     assert int(got["step"]) == 2 and set(got["opt_state"]) == set(want["opt_state"])
+
+
+def test_multi_host_zero_trains_with_directory_checkpoints(cli_runs):
+    """``multi_host`` with ``shard_optimizer``, which msgpack refuses
+    (`test_view_and_bev_spatial_raise_naming_a13b`), trains over two nodes
+    under ``orbax``: each checkpoint a committed directory with one moment
+    shard a node, each rank writing only its own, no gather of the moments
+    and no staging directory left; the epoch checkpoint holds the variables
+    the ranks end with, bit for bit."""
+    res = [r[4] for r in cli_runs["nodes"]]
+    ckpts = cli_runs["dirs"]["multi_host_zero"] / "checkpoints"
+    assert sorted(p.name for p in ckpts.iterdir()) == ["best_model", "checkpoint_epoch_0"]
+    for name in ("best_model", "checkpoint_epoch_0"):
+        assert sorted(p.name for p in (ckpts / name).iterdir()) == [
+            "COMMITTED", "meta.msgpack", "opt_state.0-of-2.msgpack", "opt_state.1-of-2.msgpack", "variables.msgpack"]
+    assert sorted(res[0]["written"]) == sorted(["meta.msgpack", "opt_state.0-of-2.msgpack", "variables.msgpack"] * 2)
+    assert res[1]["written"] == ["opt_state.1-of-2.msgpack"] * 2
+    assert res[0]["step"] == res[1]["step"] == 2 and res[0]["writes"] == {"checkpoints": 0, "metrics": 1}
+    saved = read_directory(ckpts / "checkpoint_epoch_0", ("params", "batch_stats"))
+    saved = {k: saved[k] for k in ("params", "batch_stats")}
+    for r in res:
+        assert _largest_error(r["variables"], saved) == 0.0 and _largest_error(saved, r["variables"]) == 0.0
 
 
 def test_processes_mean_and_barrier(cli_runs):

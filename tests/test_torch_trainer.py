@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from bevfusion_multimodal_3d_object_detection_tpu import config as jax_config
 from bevfusion_multimodal_3d_object_detection_tpu.models import MultiModal3DDetector as JaxDetector
@@ -22,6 +23,7 @@ from bevfusion_multimodal_3d_object_detection_tpu.train.loop import Trainer as J
 from bevfusion_multimodal_3d_object_detection_tpu.train.loop import TrainState
 from bevfusion_multimodal_3d_object_detection_tpu.utils import metrics as jax_metrics
 from bevfusion_multimodal_3d_object_detection_tpu.utils import torch_convert as jax_torch_convert
+from bevfusion_multimodal_3d_object_detection_tpu_torch import eval as port_eval
 from bevfusion_multimodal_3d_object_detection_tpu_torch import train_detect
 from bevfusion_multimodal_3d_object_detection_tpu_torch.config import CompatFlags, DetectorSpec, TrainSpec
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import (
@@ -31,8 +33,10 @@ from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import (
     collate_fn,
 )
 from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
+from bevfusion_multimodal_3d_object_detection_tpu_torch.inference_engine import InferenceEngine
 from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.decode import decode_to_host
 from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import InferenceServer
+from bevfusion_multimodal_3d_object_detection_tpu_torch.train.checkpoint import is_committed_checkpoint, read_directory
 from bevfusion_multimodal_3d_object_detection_tpu_torch.train.loop import Trainer, make_eval_step
 from bevfusion_multimodal_3d_object_detection_tpu_torch.utils import torch_convert
 from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.convert import (
@@ -91,10 +95,14 @@ def test_train_cli_writes_the_jax_artifacts_and_resumes(nuscenes_tree, tmp_path,
     assert [json.loads(s)["step"] for s in lines[4:]] == [5, 6]
 
 
-def test_cli_refuses_unported_options(nuscenes_tree, tmp_path, monkeypatch):
+def test_cli_refuses_unported_options(nuscenes_tree, tmp_path, monkeypatch, capsys):
     """C7: ``bev_spatial`` without a view axis trains exactly as without the
     key (JAX builds its BEV sharding only with view_parallel > 1, root
-    train_detect.py:121-137); the orbax backends stay JAX's."""
+    train_detect.py:121-137). ``train.checkpoint.backend: orbax_async``,
+    once refused, trains: two epochs with keep_last 1 leave the committed
+    directories of the last epoch and the best model and no staging
+    directory, a resume takes the newest, and the eval CLI and the engine
+    restore ``best_model/``."""
     monkeypatch.chdir(tmp_path)
     runs = {}
     for bev_spatial in (False, True):
@@ -107,10 +115,32 @@ def test_cli_refuses_unported_options(nuscenes_tree, tmp_path, monkeypatch):
     assert set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want)
     strip = lambda log: [{k: v for k, v in json.loads(ln).items() if k != "step_seconds"} for ln in log.splitlines()]
     assert strip(runs[True][1]) == strip(runs[False][1])
-    cfg = tree_config(tmp_path, nuscenes_tree)
-    cfg["train"]["checkpoint"]["backend"] = "orbax_async"
-    with pytest.raises(NotImplementedError, match="orbax"):
-        train_detect.main(config=cfg, device="cpu")
+    work = tmp_path / "orbax_async"
+    cfg = tree_config(work, nuscenes_tree, modality="camera+radar", num_epochs=2, batch_size=4)  # a step an epoch
+    cfg["train"]["checkpoint"].update(backend="orbax_async", keep_last=1)
+    (work / "configs").mkdir(parents=True)
+    for name in ("configs/base.yaml", "cfg.yaml"):  # the eval CLI's model config (Q10) and its loader's
+        (work / name).write_text(yaml.safe_dump(cfg))
+    monkeypatch.chdir(work)
+    train_detect.main(config=cfg, device="cpu")
+    ckpts = work / "checkpoints"
+    names = lambda: sorted(p.name for p in ckpts.iterdir())
+    assert names() == ["best_model", "checkpoint_epoch_1"]
+    assert all(p.is_dir() and is_committed_checkpoint(p) for p in ckpts.iterdir())
+    cfg["train"].update(num_epochs=3)
+    cfg["train"]["resume"]["enable"] = True
+    capsys.readouterr()
+    resumed = train_detect.main(config=cfg, device="cpu")
+    assert f"Resumed from {ckpts / 'checkpoint_epoch_1'} at epoch 2" in capsys.readouterr().out
+    assert resumed.step == 3 and resumed.optimizer.updates == 3
+    assert names() == ["best_model", "checkpoint_epoch_2"]
+    port_eval.main("cfg.yaml", device="cpu")
+    assert "Loaded checkpoint checkpoints/best_model\n" in capsys.readouterr().out
+    engine = InferenceEngine(model_path=str(ckpts / "best_model"), config=cfg, fold_bn=False, device="cpu")
+    saved = read_directory(ckpts / "best_model", ("params", "batch_stats"))
+    for part in ("params", "batch_stats"):
+        got, want = dict(tree_leaves(engine.variables[part])), dict(tree_leaves(saved[part]))
+        assert set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want)
 
 
 def test_evaluate_matches_jax_trainer():

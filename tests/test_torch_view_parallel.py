@@ -31,7 +31,7 @@ LAYOUTS = {"data1_view2": 2, "data2_view2": 4}  # the world; view_parallel is 2
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     """Each rank's `relative_errors` of each step against one process's
     steps (trained in each rank process), and its layout."""
     spec = to_port_spec(narrow_spec("camera+lidar+radar"))
@@ -46,8 +46,10 @@ def runs():
     def jobs(runs):
         return [("step_errors_here", dict(kw, runs=runs)), ("layout_of", {})]
 
+    ckpt = str(tmp_path_factory.mktemp("view_zero") / "ckpt")
     # the two layouts at once
-    wide, narrow = launch(jobs(steps), world=LAYOUTS["data2_view2"],
+    wide, narrow = launch(jobs(steps) + [("view_checkpoint", dict(spec=spec, state=state, batch=batches[0], root=ckpt))],
+                          world=LAYOUTS["data2_view2"],
                           during=lambda: launch(jobs(steps + mutants), world=LAYOUTS["data1_view2"]))
     return {"data1_view2": narrow, "data2_view2": wide}
 
@@ -70,6 +72,17 @@ def test_zero_shards_over_the_data_axis(runs, layout):
     for rank in runs[layout]:
         (errs,) = rank[0][2]
         assert all(v <= LIMIT for v in errs.values()), errs
+
+
+def test_zero_directory_checkpoint_written_once_a_data_index(runs):
+    """A directory checkpoint under (data 2, view 2) with ZeRO-1: the moments
+    are replicated over the view axis, so view index 0 of each data index
+    writes its shard and view index 1 writes nothing (as orbax writes each
+    shard once); each rank restores its slice bit for bit."""
+    written = [rank[2]["written"] for rank in runs["data2_view2"]]
+    assert written == [["meta.msgpack", "opt_state.0-of-2.msgpack", "variables.msgpack"], [],
+                       ["opt_state.1-of-2.msgpack"], []]
+    assert all(rank[2]["moments_equal"] for rank in runs["data2_view2"])
 
 
 @pytest.mark.parametrize("mutant", VIEW_MUTANTS)

@@ -245,6 +245,142 @@ def step_errors_here(spec, state, batches, runs: List[Dict]) -> List[List[Dict]]
     return out
 
 
+def without_counters(record: Dict) -> Dict:
+    """A record without torch's ``num_batches_tracked``, which has no place
+    in the JAX payload and so starts over in a restored model."""
+    return dict(record, state={k: v for k, v in record["state"].items() if not k.endswith("num_batches_tracked")})
+
+
+def _zero_record(trainer, losses) -> Dict:
+    """`_record` with the rank's flat ZeRO-1 slice as the moments (no
+    gather), without the counters."""
+    return without_counters({"losses": {k: float(v) for k, v in losses.items()},
+                             "state": {k: v.detach().double().clone() for k, v in trainer.model.state_dict().items()},
+                             "mu": {"shard": trainer.optimizer.shard_moments()[0].double().clone()}})
+
+
+def checkpoint_dirs(spec, state, batches, root: str, backend: str = "orbax_async", n_view: int = 1) -> Dict:
+    """ZeRO-1 in float64 over the launched processes (two nodes under
+    `multi_host` with `n_view` 1, each node's half of each batch; else one
+    node as (world / n_view, n_view) taking the node's batch), with
+    `ZeroOptimizer.gathered` raising: two steps, a directory checkpoint at
+    ``root/w2`` (``orbax_async``: the writer held until the third step has
+    run), the third step. Fresh trainers restore ``root/w2`` and, where the
+    parent wrote it, ``root/w1`` (one process, no ZeRO, the same two steps)
+    and take the third step. Returns the files this rank wrote, whether each
+    restored state and moment slice equals the saved one bit for bit, and
+    `relative_errors` of each resumed third step against the uninterrupted
+    one; also what ``root/slow``, an ``orbax`` save whose rank 1 writes
+    0.5 s late, holds when the save returns on this rank."""
+    import threading
+    import time
+
+    from chip_smoke import checkpoint_files
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.config import CompatFlags, TrainSpec
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.train.checkpoint import wait_for_checkpoints
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.train.loop import Trainer
+
+    multi_host = n_view == 1
+    group = data_group(multi_host, n_view)
+    if multi_host:  # each node reads its own half of the global batch
+        half = len(batches[0]["gt_boxes"]) // group.layout.num_nodes
+        rows = slice(group.layout.node * half, (group.layout.node + 1) * half)
+        batches = [{k: v[rows] for k, v in b.items()} for b in batches]
+
+    def trainer(shard_optimizer=True):
+        model = MultiModal3DDetector(spec).double()
+        t = Trainer(model, TrainSpec(), CompatFlags(), check_gradients=True, device="cpu",
+                    process_group=group if shard_optimizer else None, shard_optimizer=shard_optimizer).init_state()
+        model.load_state_dict(state)
+        return t
+
+    def same(a, b) -> bool:
+        return a.dtype == b.dtype and torch.equal(a, b)
+
+    out = {}
+    hold = threading.Event()
+    with checkpoint_files(hold if backend == "orbax_async" else None) as names:
+        live = trainer()
+        for b in batches[:2]:
+            live.train_step(b)
+        saved = {k: v.clone() for k, v in live.model.state_dict().items()}
+        saved_mu = [m.clone() for m in live.optimizer.shard_moments()]
+        live.save_checkpoint(os.path.join(root, "w2"), epoch=0, backend=backend)
+        third = _zero_record(live, live.train_step(batches[2]))  # under orbax_async, while the writer waits
+        hold.set()
+        wait_for_checkpoints()
+        out["written"] = sorted(names)
+    # a slow rank 1: a blocking save returns on every rank only once every shard is in
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.train import checkpoint
+
+    write = checkpoint._write_files
+    if group.rank == 1:
+        checkpoint._write_files = lambda directory, files: (time.sleep(0.5), write(directory, files))
+    try:
+        live.save_checkpoint(os.path.join(root, "slow"), epoch=0, backend="orbax")
+    finally:
+        checkpoint._write_files = write
+    out["slow_on_return"] = sorted(os.listdir(os.path.join(root, "slow")))
+    with checkpoint_files():
+        checks = {}
+        for name in ("w2", "w1"):
+            path = os.path.join(root, name)
+            if not os.path.isdir(path):
+                continue
+            resumed = trainer()
+            resumed.load_checkpoint(path)
+            mu = resumed.optimizer.shard_moments()
+            if name == "w2":
+                want_state, want_mu = saved, saved_mu
+            else:  # the slice of the whole moments that a plain trainer restores
+                plain = trainer(shard_optimizer=False)
+                plain.load_checkpoint(path)
+                want_state = plain.model.state_dict()
+                moments = [[plain.optimizer.adamw.state[p][k] for p in plain.optimizer.params]
+                           for k in ("exp_avg", "exp_avg_sq")]
+                want_mu = [torch.cat([t.reshape(-1) for t in m])[resumed.optimizer.lo:resumed.optimizer.hi]
+                           for m in moments]
+            checks[name] = {
+                "updates": resumed.optimizer.updates, "step": resumed.step,
+                "state_equal": all(same(v, want_state[k]) for k, v in resumed.model.state_dict().items()
+                                   if not k.endswith("num_batches_tracked")),
+                "moments_equal": all(same(a, b) for a, b in zip(mu, want_mu)),
+                "next_step": relative_errors(_zero_record(resumed, resumed.train_step(batches[2])), third),
+            }
+        out["restored"] = checks
+    return out
+
+
+def view_checkpoint(spec, state, batch, root: str, n_view: int = 2) -> Dict:
+    """ZeRO-1 over the data axis of (world / n_view, n_view), float64: one
+    step, an ``orbax`` directory checkpoint, and a fresh trainer restoring
+    it. The files this rank wrote, and whether its restored moment slice
+    equals the saved one bit for bit."""
+    from chip_smoke import checkpoint_files
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.config import CompatFlags, TrainSpec
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
+    from bevfusion_multimodal_3d_object_detection_tpu_torch.train.loop import Trainer
+
+    group = data_group(n_view=n_view)
+
+    def trainer():
+        model = MultiModal3DDetector(spec).double()
+        t = Trainer(model, TrainSpec(), CompatFlags(), device="cpu", process_group=group,
+                    shard_optimizer=True).init_state()
+        model.load_state_dict(state)
+        return t
+
+    with checkpoint_files() as names:
+        live = trainer()
+        live.train_step(batch)
+        live.save_checkpoint(root, epoch=0, backend="orbax")
+        resumed = trainer()
+        resumed.load_checkpoint(root)
+    return {"written": sorted(names), "moments_equal": all(
+        torch.equal(a, b) for a, b in zip(resumed.optimizer.shard_moments(), live.optimizer.shard_moments()))}
+
+
 def _moment_bytes(optimizer) -> int:
     if hasattr(optimizer, "moment_bytes"):
         return optimizer.moment_bytes()
@@ -301,13 +437,16 @@ def process_means(values: Dict[str, float]) -> Dict:
             "multi_process": is_multi_process()}
 
 
-def train_cli(config: Dict, workdir: str) -> Dict:
+def train_cli(config: Dict, workdir: str, directory_writes: bool = False) -> Dict:
     """`train_detect.main(config=config, device="cpu")` in `workdir`: the
     trainer's final variables and step, the files under `workdir`, how
     many checkpoints and metrics reports this process wrote, and what it
-    printed."""
+    printed. With `directory_writes`, also the files this process wrote
+    into directory checkpoints, `ZeroOptimizer.gathered` raising
+    (`chip_smoke.checkpoint_files`)."""
     import io
 
+    from chip_smoke import checkpoint_files
     from bevfusion_multimodal_3d_object_detection_tpu_torch import train_detect
     from bevfusion_multimodal_3d_object_detection_tpu_torch.train import checkpoint
     from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.convert import export_jax_variables
@@ -330,10 +469,11 @@ def train_cli(config: Dict, workdir: str) -> Dict:
         os.chdir(workdir)
         stack.callback(os.chdir, cwd)
         printed = stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+        written = stack.enter_context(checkpoint_files()) if directory_writes else None
         trainer = train_detect.main(config=copy.deepcopy(config), device="cpu")
     return {"variables": export_jax_variables(trainer.model), "step": trainer.step, "writes": writes,
             "files": sorted(str(p.relative_to(workdir)) for p in Path(workdir).rglob("*") if p.is_file()),
-            "printed": printed.getvalue()}
+            "printed": printed.getvalue(), "written": written}
 
 
 def view_across_nodes() -> str:
