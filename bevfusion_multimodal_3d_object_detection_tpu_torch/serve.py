@@ -9,8 +9,10 @@
 
 `serving.InferenceServer` (request coalescing into fixed-size batches,
 bf16 and folded camera BatchNorms by default) behind
-`serving.make_http_server`: GET /healthz, GET /stats, POST /infer. Without
-``--model`` it serves the seeded weights. With ``--port 0`` it binds a free
+`serving.make_http_server`: GET /healthz, GET /stats (the server's counters,
+the mean request latency ``mean_latency_s`` and the mean wait in the queue
+before a request's batch is staged, ``mean_queue_wait_ms``), POST /infer.
+Without ``--model`` it serves the seeded weights. With ``--port 0`` it binds a free
 port and prints it. SIGTERM or SIGINT drains: the server stops accepting,
 in-flight requests finish, and the process exits 0; a drain that takes
 longer than ``--drain-timeout`` exits 1.

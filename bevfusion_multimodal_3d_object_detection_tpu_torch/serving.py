@@ -14,6 +14,16 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/serving.py:41-648``:
   small results copy to pinned host memory behind an event;
 - per-request futures; `stop()` fails queued requests with
   `ServerStoppedError`;
+- `stats`: requests, batches, padded rows, the summed submit-to-result
+  latency and the summed queue wait (submit to the start of the batch's
+  staging), always on;
+- spans (`utils.profiling.span`, recorded only while a profiler runs), each
+  with the per-server `batch` number: ``serve.stage`` (stacking and padding
+  the batch, its host-to-device copies; with ``requests``, ``queue_wait_s``
+  and ``h2d_bytes``), ``serve.launch`` (forward, decode and the outputs'
+  copies enqueued) and ``serve.fetch`` (the wait for the outputs and the
+  host post-processing). Batch N's fetch overlaps batch N+1's stage, so
+  neither is the other's parent;
 - `aot_path=`: serve from an artifact of `utils.aot.export_serving_artifact`
   (one `torch.export` program per wire signature) with this server's own
   weights, in place of the live model code;
@@ -59,6 +69,7 @@ from .parallel.view import LocalViews
 from .utils.convert import load_jax_variables
 from .utils.device import resolve_device
 from .utils.fold_bn import fold_camera_variables
+from .utils.profiling import span
 from .utils.restore import load_serving_variables
 
 
@@ -161,7 +172,9 @@ class InferenceServer:
         # fences submit()'s stopped-check + put against stop()'s drain
         self._submit_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
-        self.stats = {"requests": 0, "batches": 0, "padded_rows": 0, "total_latency_s": 0.0}
+        self.stats = {"requests": 0, "batches": 0, "padded_rows": 0, "total_latency_s": 0.0,
+                      "queue_wait_s": 0.0}
+        self._launches = 0  # batches staged: the spans' batch numbers
 
     # -- lifecycle -------------------------------------------------------------
     def start(self, warmup: bool = True) -> "InferenceServer":
@@ -264,7 +277,7 @@ class InferenceServer:
     def _dispatch(self) -> None:
         """Launch batch N+1 before resolving batch N, so staging and the
         device work of one batch overlap the other's result copy."""
-        pending = None  # (launched, futures, n, t_enqs)
+        pending = None  # (batch number, launched, futures, n, t_enqs, queue wait)
         while not self._stop.is_set():
             batch = self._collect(poll_s=0.002 if pending else 0.05)
             if batch is None:
@@ -278,8 +291,11 @@ class InferenceServer:
             if not batch:
                 continue
             futures = [b[1] for b in batch]
+            t_enqs = [b[2] for b in batch]
+            staged = time.perf_counter()
+            wait = sum(staged - t for t in t_enqs)
             try:
-                launched = self._launch([b[0] for b in batch])
+                number, launched = self._launch([b[0] for b in batch], queue_wait_s=wait)
             except Exception as e:  # surface server errors to callers
                 for fut in futures:
                     if not fut.done():
@@ -287,7 +303,7 @@ class InferenceServer:
                 continue
             if pending is not None:
                 self._finish(*pending)
-            pending = (launched, futures, len(batch), [b[2] for b in batch])
+            pending = (number, launched, futures, len(batch), t_enqs, wait)
         if pending is not None:
             self._finish(*pending)
 
@@ -348,23 +364,36 @@ class InferenceServer:
             cams = cams.to(self.dtype)
         return cams, lidar.to(self.dtype), radars.to(self.dtype)
 
-    def _launch(self, samples: List[Dict]):
-        """Stage and enqueue one batch; returns a (host outputs, event) per
-        replica without waiting for the device."""
-        if len(self.replicas) == 1:
-            return [self._enqueue_outputs(self._serve(*self._stage(samples)), self.device)]
-        host = self._host_batch(samples)
-        if self.device.type == "cuda":  # the parts' copies then run asynchronously
-            host = [t.pin_memory() for t in host]
-        rows = self.batch_size // len(self.replicas)
-        launched = []
-        for i, (model, device, stream) in enumerate(self.replicas):
-            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-                args = self._to_device(host, device, slice(i * rows, (i + 1) * rows))
-                with torch.inference_mode():
-                    out = self._serve_body(*args, model=model)
-                launched.append(self._enqueue_outputs(out, device))
-        return launched
+    def _launch(self, samples: List[Dict], queue_wait_s: float = 0.0):
+        """Stage and enqueue one batch without waiting for the device;
+        returns the batch's number and a (host outputs, event) per replica.
+        `queue_wait_s`, the batch's requests' summed wait before staging,
+        is an attribute of its ``serve.stage`` span."""
+        self._launches += 1
+        number = self._launches
+        with span("serve.stage", batch=number, requests=len(samples), queue_wait_s=queue_wait_s) as stage:
+            host = self._host_batch(samples)
+            stage.set(h2d_bytes=sum(t.nbytes for t in host))
+            if len(self.replicas) == 1:
+                parts = [self._to_device(host, self.device)]
+            else:
+                if self.device.type == "cuda":  # the parts' copies then run asynchronously
+                    host = [t.pin_memory() for t in host]
+                rows = self.batch_size // len(self.replicas)
+                parts = []
+                for i, (_, device, stream) in enumerate(self.replicas):
+                    with _on_stream(stream):
+                        parts.append(self._to_device(host, device, slice(i * rows, (i + 1) * rows)))
+        with span("serve.launch", batch=number):
+            if len(self.replicas) == 1:
+                return number, [self._enqueue_outputs(self._serve(*parts[0]), self.device)]
+            launched = []
+            for args, (model, device, stream) in zip(parts, self.replicas):
+                with _on_stream(stream):
+                    with torch.inference_mode():
+                        out = self._serve_body(*args, model=model)
+                    launched.append(self._enqueue_outputs(out, device))
+            return number, launched
 
     @staticmethod
     def _enqueue_outputs(out: Dict[str, torch.Tensor], device: torch.device):
@@ -377,9 +406,10 @@ class InferenceServer:
             event.record()
         return host, event
 
-    def _finish(self, launched, futures, n: int, t_enqs: List[float]) -> None:
+    def _finish(self, number: int, launched, futures, n: int, t_enqs: List[float], queue_wait_s: float) -> None:
         try:
-            results = self._fetch(launched, n)
+            with span("serve.fetch", batch=number):
+                results = self._fetch(launched, n)
         except Exception as e:
             for fut in futures:
                 if not fut.done():
@@ -393,6 +423,7 @@ class InferenceServer:
         self.stats["batches"] += 1
         self.stats["padded_rows"] += self.batch_size - n
         self.stats["total_latency_s"] += sum(now - t for t in t_enqs)
+        self.stats["queue_wait_s"] += queue_wait_s
 
     def _fetch(self, launched, n: int) -> List[Dict]:
         for _, event in launched:
@@ -419,7 +450,14 @@ class InferenceServer:
 
     def _run_batch(self, samples: List[Dict]) -> List[Dict]:
         """Synchronous path (warmup, tests, timing): launch + fetch."""
-        return self._fetch(self._launch(samples), len(samples))
+        number, launched = self._launch(samples)
+        with span("serve.fetch", batch=number):
+            return self._fetch(launched, len(samples))
+
+
+def _on_stream(stream: Optional[torch.cuda.Stream]):
+    """`stream` as the current stream (a replica's), or nothing for None."""
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------
@@ -443,8 +481,9 @@ def make_http_server(server: InferenceServer, host: str, port: int,
     binds a free port (``httpd.server_address[1]``).
 
       GET  /healthz -> {"status": "ok"}
-      GET  /stats   -> the server's request/batch/latency counters, the
-                       uptime and the mean request latency
+      GET  /stats   -> the server's request/batch/latency/queue-wait
+                       counters, the uptime, the mean request latency and
+                       the mean queue wait (submit to staging) in ms
       POST /infer   -> one sample as application/x-npz (np.savez of
                        camera_imgs, lidar_points, radar_points) or
                        application/json (the same keys as nested lists);
@@ -482,6 +521,7 @@ def make_http_server(server: InferenceServer, host: str, port: int,
                 st["uptime_s"] = time.time() - t_start
                 if st["requests"]:
                     st["mean_latency_s"] = st["total_latency_s"] / st["requests"]
+                    st["mean_queue_wait_ms"] = st["queue_wait_s"] / st["requests"] * 1e3
                 self._reply(200, st)
             else:
                 self._reply(404, {"error": f"no route {self.path}"})

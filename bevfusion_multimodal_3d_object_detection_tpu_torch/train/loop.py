@@ -29,6 +29,14 @@ pair plans. The train step launches no hand-written kernel: the point
 encoders run their plain chain, as in the JAX package, whose Pallas kernels
 have no backward.
 
+Each step first moves every array it reads to the device, then computes;
+the spans of `utils.profiling.span` (recorded only while a profiler runs)
+mark the layers: ``eval.inputs`` (the copies, with ``h2d_bytes``, the host
+arrays' bytes) and ``eval.forward`` (model and decode); ``train.inputs``
+(likewise), then ``train.forward`` (augmentation, model, targets, loss),
+``train.backward`` and ``train.optimizer``, each of these three with its
+CUDA stream time; ``train.next_batch``, the Trainer's wait on its loader.
+
 Data parallelism (``train/loop.py:139-152, 303-356, 430-470, 555-615`` of
 the JAX package, whose jit gives each step the global batch's semantics):
 given a `parallel.DataGroup`, a step takes its node's batch, keeps this
@@ -59,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import math
 from pathlib import Path
 from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence, Tuple
@@ -67,6 +76,7 @@ import numpy as np
 import torch
 
 from ..config import AugmentSpec, CompatFlags, DetectorSpec, TrainSpec
+from ..data.dataset import CHUNK_KEYS, PAIR_KEYS
 from ..models.batch_norm import global_statistics
 from ..models.detector import MultiModal3DDetector
 from ..ops.augment import augment_modalities, draw_augmentation, step_generator
@@ -77,6 +87,7 @@ from ..ops.targets import prepare_centernet_targets
 from ..parallel.distributed import barrier, sum_flat
 from ..parallel.view import partial_modules
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 if TYPE_CHECKING:
     from ..parallel.mesh import DataGroup
@@ -86,6 +97,28 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+# the geometric path's per-sample plans: frustum cells, chunk plans, culled pair plans
+_PLAN_KEYS = ("camera_cells", *(f"camera_{k}" for k in CHUNK_KEYS + PAIR_KEYS))
+
+
+def _on_device(spec: DetectorSpec, batch: Dict, device: torch.device, targets: bool = False) -> Tuple[Dict, int]:
+    """The batch with every array a step reads on `device` (the model's
+    inputs and plans, and with `targets` the ground truth), unchanged in
+    dtype, and the bytes of those that were numpy arrays."""
+    keys = [k for k, used in (("camera_imgs", spec.use_camera), ("lidar_points", spec.use_lidar),
+                              ("radar_points", spec.use_radar)) if used]
+    if spec.use_camera:
+        keys += [k for k in _PLAN_KEYS if k in batch]
+    if targets:
+        keys += ["gt_boxes", "gt_labels"]
+    out, nbytes = dict(batch), 0
+    for k in keys:
+        if isinstance(batch[k], np.ndarray):
+            nbytes += batch[k].nbytes
+        out[k] = _tensor(batch[k], device)
+    return out, nbytes
 
 
 def with_data_widths(spec: DetectorSpec, batch: Dict) -> DetectorSpec:
@@ -163,16 +196,20 @@ def make_eval_step(
     @torch.inference_mode()
     def eval_step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.eval()  # a train step on the same model may have run since
-        preds = model(*_model_inputs(spec, batch, device, dtype), **_model_kwargs(spec, batch, device))
-        if not spec.head_is_centernet:
-            return preds
-        return decode_centernet_predictions(
-            preds,
-            max_detections=max_detections,
-            voxel_size=voxel_size,
-            pc_range=spec.bev.pc_range,
-            class_always_zero=compat.decode_class_always_zero,
-        )
+        with span("eval.inputs") as inputs:
+            batch, nbytes = _on_device(spec, batch, device)
+            inputs.set(h2d_bytes=nbytes)
+        with span("eval.forward"):
+            preds = model(*_model_inputs(spec, batch, device, dtype), **_model_kwargs(spec, batch, device))
+            if not spec.head_is_centernet:
+                return preds
+            return decode_centernet_predictions(
+                preds,
+                max_detections=max_detections,
+                voxel_size=voxel_size,
+                pc_range=spec.bev.pc_range,
+                class_always_zero=compat.decode_class_always_zero,
+            )
 
     return eval_step
 
@@ -297,7 +334,8 @@ class TrainStep:
     """`train_step(batch) -> losses` (see `make_train_step`); `step` counts
     the calls, as the JAX package's ``TrainState.step``. A call runs
     `augmented`, `forward`, `loss`, `gradients` and `update` in turn, on
-    this rank's rows of the batch under a `data` group."""
+    this rank's rows of the batch under a `data` group, once the arrays it
+    reads are on the device."""
 
     def __init__(self, model: MultiModal3DDetector, optimizer: Optimizer, train_spec: TrainSpec,
                  compat: CompatFlags, check_gradients: bool, device: torch.device,
@@ -433,9 +471,17 @@ class TrainStep:
     def __call__(self, batch: Dict) -> Dict[str, torch.Tensor]:
         if self.data is not None:
             batch = self.data.local_rows(batch)
-        batch = self.augmented(batch)
-        losses = self.loss(self.forward(batch), batch)
-        return self.update(losses, self.gradients(losses["total_loss"]))
+        with span("train.inputs") as inputs:
+            batch, nbytes = _on_device(self.model.spec, batch, self.device, targets=True)
+            inputs.set(h2d_bytes=nbytes)
+        timed = self.device.type == "cuda"
+        with span("train.forward", device=timed):
+            batch = self.augmented(batch)
+            losses = self.loss(self.forward(batch), batch)
+        with span("train.backward", device=timed):
+            grads = self.gradients(losses["total_loss"])
+        with span("train.optimizer", device=timed):
+            return self.update(losses, grads)
 
 
 def make_train_step(
@@ -620,7 +666,12 @@ class Trainer:
         import time
 
         total, count = 0.0, 0
-        for i, batch in enumerate(loader):
+        batches = iter(loader)
+        for i in itertools.count():
+            with span("train.next_batch"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             t0 = time.perf_counter()
             # the fused splat's chunk plans are for inference only
             batch = {k: v for k, v in batch.items() if k not in (

@@ -115,6 +115,8 @@ def test_routes_and_wire_formats(http):
     with urllib.request.urlopen(f"{http.base}/stats", timeout=30) as r:
         stats = json.load(r)
     assert stats["requests"] == 4 and stats["uptime_s"] > 0 and stats["mean_latency_s"] > 0
+    assert stats["mean_queue_wait_ms"] == stats["queue_wait_s"] / 4 * 1e3 and stats["queue_wait_s"] >= 0
+    assert stats["mean_queue_wait_ms"] <= stats["mean_latency_s"] * 1e3  # waited before staging, within the latency
     assert _status(f"{http.base}/nowhere")[0] == 404
     assert _status(f"{http.base}/infer/x", b"{}")[0] == 404
 
