@@ -10,20 +10,29 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/serving.py:41-648``:
   convs by default, and the fused PointNet kernel in both point encoders;
 - uint8 cameras are normalized on the device; a batch mixing uint8 and
   float cameras normalizes its uint8 rows on the host;
+- a staging ring: each batch signature (the wire keys' dtypes and
+  full-batch shapes: the uint8 and the float32 wire) has two host buffers,
+  allocated on its first use (page-locked on a CUDA server) and reused in
+  turn; a batch's samples are stacked straight into the next one, its
+  padding rows zeroed, and copied to the device asynchronously, each
+  replica's rows on its stream. A buffer is written again only once the
+  events recorded behind the copies that last read it have completed;
 - a two-stage pipeline: batch N+1 is staged and enqueued while batch N's
   small results copy to pinned host memory behind an event;
 - per-request futures; `stop()` fails queued requests with
   `ServerStoppedError`;
-- `stats`: requests, batches, padded rows, the summed submit-to-result
-  latency and the summed queue wait (submit to the start of the batch's
-  staging), always on;
+- `stats`: requests, batches, the batches staged in page-locked memory,
+  padded rows, the summed submit-to-result latency, the summed queue wait
+  (submit to the start of the batch's staging) and the staging buffers
+  allocated, always on;
 - spans (`utils.profiling.span`, recorded only while a profiler runs), each
   with the per-server `batch` number: ``serve.stage`` (stacking and padding
-  the batch, its host-to-device copies; with ``requests``, ``queue_wait_s``
-  and ``h2d_bytes``), ``serve.launch`` (forward, decode and the outputs'
-  copies enqueued) and ``serve.fetch`` (the wait for the outputs and the
-  host post-processing). Batch N's fetch overlaps batch N+1's stage, so
-  neither is the other's parent;
+  the batch, its host-to-device copies; with ``requests``, ``queue_wait_s``,
+  ``h2d_bytes`` and ``pinned``, 1 for a batch staged in page-locked
+  memory), ``serve.launch`` (forward, decode and the outputs' copies
+  enqueued) and ``serve.fetch`` (the wait for the outputs and the host
+  post-processing). Batch N's fetch overlaps batch N+1's stage, so neither
+  is the other's parent;
 - `aot_path=`: serve from an artifact of `utils.aot.export_serving_artifact`
   (one `torch.export` program per wire signature) with this server's own
   weights, in place of the live model code;
@@ -76,6 +85,16 @@ from .utils.restore import load_serving_variables
 class ServerStoppedError(RuntimeError):
     """The InferenceServer is stopped or draining: the request was not run
     (retryable), as opposed to an internal error."""
+
+
+class _Slot(list):
+    """One buffer of the staging ring: a padded batch's (cams, lidar,
+    radars) host tensors, and the CUDA events behind the copies that last
+    read them."""
+
+    def __init__(self, tensors):
+        super().__init__(tensors)
+        self.events: List[torch.cuda.Event] = []
 
 
 class InferenceServer:
@@ -172,9 +191,13 @@ class InferenceServer:
         # fences submit()'s stopped-check + put against stop()'s drain
         self._submit_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
-        self.stats = {"requests": 0, "batches": 0, "padded_rows": 0, "total_latency_s": 0.0,
-                      "queue_wait_s": 0.0}
+        self.stats = {"requests": 0, "batches": 0, "pinned_batches": 0, "padded_rows": 0,
+                      "total_latency_s": 0.0, "queue_wait_s": 0.0, "slot_allocs": 0}
         self._launches = 0  # batches staged: the spans' batch numbers
+        self._ring: Dict[tuple, List[_Slot]] = {}  # batch signature -> its two slots, the next first
+        # one batch at a time is written and copied: the dispatch thread's,
+        # or a `_run_batch` caller's
+        self._staging = threading.Lock()
 
     # -- lifecycle -------------------------------------------------------------
     def start(self, warmup: bool = True) -> "InferenceServer":
@@ -277,7 +300,7 @@ class InferenceServer:
     def _dispatch(self) -> None:
         """Launch batch N+1 before resolving batch N, so staging and the
         device work of one batch overlap the other's result copy."""
-        pending = None  # (batch number, launched, futures, n, t_enqs, queue wait)
+        pending = None  # (batch number, launched, futures, n, t_enqs, queue wait, pinned)
         while not self._stop.is_set():
             batch = self._collect(poll_s=0.002 if pending else 0.05)
             if batch is None:
@@ -295,7 +318,7 @@ class InferenceServer:
             staged = time.perf_counter()
             wait = sum(staged - t for t in t_enqs)
             try:
-                number, launched = self._launch([b[0] for b in batch], queue_wait_s=wait)
+                number, launched, pinned = self._launch([b[0] for b in batch], queue_wait_s=wait)
             except Exception as e:  # surface server errors to callers
                 for fut in futures:
                     if not fut.done():
@@ -303,7 +326,7 @@ class InferenceServer:
                 continue
             if pending is not None:
                 self._finish(*pending)
-            pending = (number, launched, futures, len(batch), t_enqs, wait)
+            pending = (number, launched, futures, len(batch), t_enqs, wait, pinned)
         if pending is not None:
             self._finish(*pending)
 
@@ -331,13 +354,22 @@ class InferenceServer:
         )
 
     def _stage(self, samples: List[Dict]):
-        """Samples (at most batch_size) -> the (cams, lidar, radars) device
-        tensors of one padded batch, as `_serve` takes them."""
-        return self._to_device(self._host_batch(samples), self.device)
+        """Samples (at most batch_size) -> the host tensors of one padded
+        batch, and each replica's rows of it on the replica's device,
+        copied on its stream: (cams, lidar, radars) as `_serve` takes them."""
+        with self._staging:
+            host = self._host_batch(samples)
+            rows = self.batch_size // len(self.replicas)
+            parts = []
+            for i, (_, device, stream) in enumerate(self.replicas):
+                with _on_stream(stream):
+                    parts.append(self._to_device(host, device, slice(i * rows, (i + 1) * rows)))
+        return host, parts
 
     def _host_batch(self, samples: List[Dict]) -> List[torch.Tensor]:
         """The (cams, lidar, radars) host tensors of one padded batch, in
-        the samples' dtypes."""
+        the samples' dtypes, written into the next slot of the batch
+        signature's staging ring."""
         n = len(samples)
         if len({np.asarray(s["camera_imgs"]).dtype for s in samples}) > 1:
             # np.stack would promote uint8 rows to float without normalizing
@@ -351,49 +383,74 @@ class InferenceServer:
                 else s
                 for s in samples
             ]
-        pad_sample = {k: np.zeros_like(v) for k, v in samples[0].items()}
-        padded = samples + [pad_sample] * (self.batch_size - n)
-        return [torch.from_numpy(np.ascontiguousarray(np.stack([s[key] for s in padded])))
-                for key in ("camera_imgs", "lidar_points", "radar_points")]
+        rows = [[np.asarray(s[key]) for s in samples] for key in ("camera_imgs", "lidar_points", "radar_points")]
+        slot = self._slot(tuple((np.result_type(*(r.dtype for r in key_rows)), key_rows[0].shape)
+                                for key_rows in rows))
+        for key_rows, t in zip(rows, slot):
+            out = t.numpy()
+            np.stack(key_rows, out=out[:n])
+            out[n:] = 0
+        return slot
 
-    def _to_device(self, host: List[torch.Tensor], device: torch.device, rows: slice = slice(None)):
-        """`rows` of a host batch on `device`, float inputs in the serving
-        dtype (the uint8 wire stays uint8, normalized on the device)."""
-        cams, lidar, radars = (t[rows].to(device, non_blocking=True) for t in host)
+    def _slot(self, signature: tuple) -> _Slot:
+        """The next slot of `signature`'s ring ((dtype, sample shape) a wire
+        key), once the copies that last read it have completed. Both slots
+        are allocated on the signature's first use, page-locked on a CUDA
+        server, so that the copies from them are asynchronous."""
+        slots = self._ring.get(signature)
+        if slots is None:
+            pin = self.device.type == "cuda"
+            slots = self._ring[signature] = [
+                _Slot(torch.empty((self.batch_size,) + shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                                  pin_memory=pin) for dtype, shape in signature)
+                for _ in range(2)
+            ]
+            self.stats["slot_allocs"] += len(slots)
+        slot = slots.pop(0)
+        slots.append(slot)
+        for event in slot.events:
+            event.synchronize()
+        slot.events.clear()
+        return slot
+
+    def _to_device(self, host: _Slot, device: torch.device, rows: slice):
+        """`rows` of a staged batch on `device`, copied on its current
+        stream, an event recorded behind the copies; float inputs in the
+        serving dtype (the uint8 wire stays uint8, normalized on the
+        device)."""
+        # copies on the CPU too: no device tensor aliases a slot that a
+        # later batch rewrites
+        cams, lidar, radars = (t[rows].to(device, non_blocking=True, copy=True) for t in host)
+        if device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            host.events.append(event)
         if cams.dtype != torch.uint8:
             cams = cams.to(self.dtype)
         return cams, lidar.to(self.dtype), radars.to(self.dtype)
 
     def _launch(self, samples: List[Dict], queue_wait_s: float = 0.0):
         """Stage and enqueue one batch without waiting for the device;
-        returns the batch's number and a (host outputs, event) per replica.
+        returns the batch's number, a (host outputs, event) per replica and
+        whether the batch was staged in page-locked memory.
         `queue_wait_s`, the batch's requests' summed wait before staging,
         is an attribute of its ``serve.stage`` span."""
         self._launches += 1
         number = self._launches
         with span("serve.stage", batch=number, requests=len(samples), queue_wait_s=queue_wait_s) as stage:
-            host = self._host_batch(samples)
-            stage.set(h2d_bytes=sum(t.nbytes for t in host))
-            if len(self.replicas) == 1:
-                parts = [self._to_device(host, self.device)]
-            else:
-                if self.device.type == "cuda":  # the parts' copies then run asynchronously
-                    host = [t.pin_memory() for t in host]
-                rows = self.batch_size // len(self.replicas)
-                parts = []
-                for i, (_, device, stream) in enumerate(self.replicas):
-                    with _on_stream(stream):
-                        parts.append(self._to_device(host, device, slice(i * rows, (i + 1) * rows)))
+            host, parts = self._stage(samples)
+            pinned = self.device.type == "cuda" and all(t.is_pinned() for t in host)
+            stage.set(h2d_bytes=sum(t.nbytes for t in host), pinned=int(pinned))
         with span("serve.launch", batch=number):
             if len(self.replicas) == 1:
-                return number, [self._enqueue_outputs(self._serve(*parts[0]), self.device)]
+                return number, [self._enqueue_outputs(self._serve(*parts[0]), self.device)], pinned
             launched = []
             for args, (model, device, stream) in zip(parts, self.replicas):
                 with _on_stream(stream):
                     with torch.inference_mode():
                         out = self._serve_body(*args, model=model)
                     launched.append(self._enqueue_outputs(out, device))
-            return number, launched
+            return number, launched, pinned
 
     @staticmethod
     def _enqueue_outputs(out: Dict[str, torch.Tensor], device: torch.device):
@@ -406,7 +463,8 @@ class InferenceServer:
             event.record()
         return host, event
 
-    def _finish(self, number: int, launched, futures, n: int, t_enqs: List[float], queue_wait_s: float) -> None:
+    def _finish(self, number: int, launched, futures, n: int, t_enqs: List[float], queue_wait_s: float,
+                pinned: bool) -> None:
         try:
             with span("serve.fetch", batch=number):
                 results = self._fetch(launched, n)
@@ -421,6 +479,7 @@ class InferenceServer:
         now = time.perf_counter()
         self.stats["requests"] += n
         self.stats["batches"] += 1
+        self.stats["pinned_batches"] += int(pinned)
         self.stats["padded_rows"] += self.batch_size - n
         self.stats["total_latency_s"] += sum(now - t for t in t_enqs)
         self.stats["queue_wait_s"] += queue_wait_s
@@ -450,7 +509,7 @@ class InferenceServer:
 
     def _run_batch(self, samples: List[Dict]) -> List[Dict]:
         """Synchronous path (warmup, tests, timing): launch + fetch."""
-        number, launched = self._launch(samples)
+        number, launched, _ = self._launch(samples)
         with span("serve.fetch", batch=number):
             return self._fetch(launched, len(samples))
 

@@ -71,7 +71,7 @@ def _zero_batch(server, uint8: bool):
     sample = server._zero_sample()
     if uint8:
         sample["camera_imgs"] = sample["camera_imgs"].astype(np.uint8)
-    return server._stage([sample] * server.batch_size)
+    return server._stage([sample] * server.batch_size)[1][0]
 
 
 def export_serving_artifact(server, path) -> Dict:

@@ -9,15 +9,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from bevfusion_multimodal_3d_object_detection_tpu.config import DetectorSpec, load_config
 from bevfusion_multimodal_3d_object_detection_tpu.models import MultiModal3DDetector
 from bevfusion_multimodal_3d_object_detection_tpu.serving import (
     InferenceServer as JaxServer,
 )
+from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import (
     InferenceServer,
     ServerStoppedError,
+    _Slot,
 )
 from torch_port_helpers import detector_inputs, random_variables
 
@@ -127,3 +130,49 @@ def test_bf16_server_matches_jax_fused_server(narrow_config, variables):
         assert len(g["scores"]) == len(w["scores"]) == 100
         np.testing.assert_allclose(np.sort(g["scores"]), np.sort(w["scores"]), rtol=0, atol=3e-2)
         assert np.isfinite(g["boxes"]).all()
+
+
+def _plain_stack(samples, batch_size):
+    """The staging before the ring: a uint8 row of a mixed batch normalized
+    on the host, zero padding rows, one fresh np.stack a wire key."""
+    if len({s["camera_imgs"].dtype for s in samples}) > 1:
+        samples = [dict(s, camera_imgs=(s["camera_imgs"].astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD)
+                   if s["camera_imgs"].dtype == np.uint8 else s for s in samples]
+    pad = {k: np.zeros_like(v) for k, v in samples[0].items()}
+    padded = samples + [pad] * (batch_size - len(samples))
+    return [np.stack([s[k] for s in padded]) for k in ("camera_imgs", "lidar_points", "radar_points")]
+
+
+def test_staging_ring_reuses_its_slots_bit_for_bit(narrow_config):
+    """Each batch through `_host_batch` equals a plain np.stack of its
+    samples bit for bit: a full uint8 batch, a full float32 one, a mixed one
+    (staged through the float32 ring), then a partial uint8 batch in the
+    slot the first full one used, whose stale rows read zero. A signature's
+    third batch reuses its first slot's memory, nothing is allocated after
+    the first batch of each signature, and a CPU server pins nothing. The
+    served detections are those of the plain stack."""
+    server = InferenceServer(config=narrow_config, batch_size=3, use_bf16=False, device="cpu",
+                             score_threshold=0.0)
+    floats = _samples(server.spec, 3, seed=8)
+    rng = np.random.RandomState(9)
+    u8 = [dict(s, camera_imgs=rng.randint(0, 256, s["camera_imgs"].shape, np.uint8)) for s in floats]
+    batches = [("uint8", u8), ("float32", floats), ("mixed", [u8[0], floats[1], u8[2]]),
+               ("uint8 again", u8[::-1]), ("partial uint8", u8[1:2])]
+    ptrs = []
+    for name, batch in batches:
+        host = server._host_batch(batch)
+        for got, want in zip(host, _plain_stack(batch, server.batch_size)):
+            assert got.dtype == torch.from_numpy(want).dtype and not got.is_pinned(), name
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+        ptrs.append(host[0].data_ptr())
+        assert server.stats["slot_allocs"] == (2 if name == "uint8" else 4), name
+    assert ptrs[4] == ptrs[0] and len({ptrs[0], ptrs[1], ptrs[2], ptrs[3]}) == 4
+    assert not host[0][1:].any() and not host[1][1:].any()  # the full batch's rows, zeroed
+
+    plain = [torch.from_numpy(a) for a in _plain_stack(u8[1:2], server.batch_size)]
+    staged = server._to_device(_Slot(plain), server.device, slice(None))
+    want = server._fetch([server._enqueue_outputs(server._serve(*staged), server.device)], 1)
+    got = server._run_batch(u8[1:2])
+    assert server.stats["slot_allocs"] == 4 and len(got[0]["scores"]) > 0
+    for key in ("boxes", "scores", "labels"):
+        np.testing.assert_array_equal(got[0][key], want[0][key])
