@@ -222,6 +222,41 @@ def parse_modalities(modality_config: Optional[str]) -> Tuple[bool, bool, bool]:
     return use_camera, use_lidar, use_radar
 
 
+# `camera_encoder.backbone` values that build the Swin Transformer trunk and
+# its LSS-FPN neck; every other value builds ResNet-18, as the JAX package
+# does whatever it names
+SWIN_BACKBONES: Tuple[str, ...] = ("swin_t",)
+
+
+@dataclass(frozen=True)
+class SwinSpec:
+    """The Swin trunk's sizes (``camera_encoder.swin``): Swin-T's by default
+    (arXiv 2103.14030; BEVFusion's nuScenes camera stream). `out_indices`
+    are the stages that go on to the neck; the first one's stride,
+    patch_size x 2^index, is the encoder's total stride."""
+
+    embed_dim: int = 96
+    depths: Tuple[int, ...] = (2, 2, 6, 2)
+    num_heads: Tuple[int, ...] = (3, 6, 12, 24)
+    window_size: int = 7
+    mlp_ratio: float = 4.0
+    patch_size: int = 4
+    out_indices: Tuple[int, ...] = (1, 2, 3)
+
+    @staticmethod
+    def from_config(cfg: Optional[Dict]) -> "SwinSpec":
+        c, d = cfg or {}, SwinSpec()
+        return SwinSpec(
+            embed_dim=c.get("embed_dim", d.embed_dim),
+            depths=tuple(c.get("depths", d.depths)),
+            num_heads=tuple(c.get("num_heads", d.num_heads)),
+            window_size=c.get("window_size", d.window_size),
+            mlp_ratio=float(c.get("mlp_ratio", d.mlp_ratio)),
+            patch_size=c.get("patch_size", d.patch_size),
+            out_indices=tuple(c.get("out_indices", d.out_indices)),
+        )
+
+
 @dataclass(frozen=True)
 class CameraEncoderSpec:
     backbone: str = "resnet18"
@@ -237,6 +272,11 @@ class CameraEncoderSpec:
     image_size: Tuple[int, int] = (448, 800)
     # jax.checkpoint each residual block (HBM <-> FLOPs trade for training)
     remat: bool = False
+    swin: SwinSpec = field(default_factory=SwinSpec)
+
+    @property
+    def is_swin(self) -> bool:
+        return self.backbone in SWIN_BACKBONES
 
 
 @dataclass(frozen=True)
@@ -297,6 +337,25 @@ class BEVFusionSpec:
     # calibrations vary enough to overflow the auto capacity.
     splat_cull_points: int = 0
     splat_cull_pairs: int = 0
+    # BEVFusion's camera grid (its LSSTransform): the lift-splat fills
+    # camera_downsample times the fused grid's rows and columns, with
+    # camera_bev_channels (0: bev_channels), and camera_downsample 2 takes
+    # them to the fused grid by conv-BN-ReLU, a stride-2 conv-BN-ReLU and
+    # conv-BN-ReLU in place of the refine conv; frustum points whose z lies
+    # outside camera_zbound [z_min, z_max) drop (None: none drop)
+    camera_bev_channels: int = 0
+    camera_downsample: int = 1
+    camera_zbound: Optional[Tuple[float, float]] = None
+
+    @property
+    def camera_grid(self) -> Tuple[int, int]:
+        """(rows, columns) of the grid the camera's frustum points fall in."""
+        return self.bev_h * self.camera_downsample, self.bev_w * self.camera_downsample
+
+    @property
+    def camera_width(self) -> int:
+        """Channels of the camera's BEV map."""
+        return self.camera_bev_channels or self.bev_channels
 
 
 @dataclass(frozen=True)
@@ -442,6 +501,7 @@ class DetectorSpec:
                 total_stride=cam_cfg.get("total_stride", 16),
                 image_size=image_size,
                 remat=cam_cfg.get("remat", False),
+                swin=SwinSpec.from_config(cam_cfg.get("swin")),
             ),
             lidar=LidarEncoderSpec(
                 encoder_type=lid_cfg.get("type", "PointNet"),
@@ -476,6 +536,9 @@ class DetectorSpec:
                 depth_bins=bev_cfg.get("depth_bins", 40),
                 depth_min=bev_cfg.get("depth_min", 1.0),
                 depth_max=bev_cfg.get("depth_max", 60.0),
+                camera_bev_channels=bev_cfg.get("camera_bev_channels", 0),
+                camera_downsample=bev_cfg.get("camera_downsample", 1),
+                camera_zbound=(tuple(bev_cfg["camera_zbound"]) if bev_cfg.get("camera_zbound") else None),
             ),
             attention=AttentionFusionSpec(
                 hidden_dim=attn_cfg.get("hidden_dim", 512),

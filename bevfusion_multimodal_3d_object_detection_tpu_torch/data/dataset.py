@@ -38,7 +38,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..config import CAMERA_ORDER, DEFAULT_CLASSES, RADAR_ORDER, CompatFlags, DataSpec
+from ..config import CAMERA_ORDER, DEFAULT_CLASSES, RADAR_ORDER, CompatFlags, DataSpec, DetectorSpec
 from ..ops.bev_pool import precompute_bev_chunks
 from ..ops.bev_splat import (
     precompute_culled_pairs,
@@ -135,13 +135,16 @@ def frustum_cells(
     depth_min: float,
     depth_max: float,
     pc_range: Tuple[float, ...],
+    stride: int = 16,
+    z_range: Optional[Tuple[float, float]] = None,
 ) -> np.ndarray:
     """(N_cam, D, H', W') int32 BEV cell of every frustum point of the six
-    cameras of one sample info (-1 out of range). Intrinsics are scaled from
-    the native 1600x900 nuScenes images to `image_size`; the feature grid is
-    the camera trunk's stride 16."""
+    cameras of one sample info (-1 out of range, or with `z_range` out of
+    [z_min, z_max)). Intrinsics are scaled from the native 1600x900 nuScenes
+    images to `image_size`; the feature grid is the camera encoder's, at
+    its total `stride` (16 for ResNet-18, 8 for Swin-T and its neck)."""
     h, w = image_size
-    fh, fw = h // 16, w // 16
+    fh, fw = h // stride, w // stride
     depths = np.linspace(depth_min, depth_max, depth_bins)
     lc = info["lidar_calibrated_sensor"]
     lidar_rot = quat_rotation_matrix(lc["rotation"])  # lidar -> ego
@@ -159,7 +162,7 @@ def frustum_cells(
         out.append(
             precompute_frustum_cells(
                 scale @ intr, rot, trans, feat_hw=(fh, fw), image_hw=(h, w),
-                depth_bins=depths, bev_hw=bev_hw, pc_range=pc_range,
+                depth_bins=depths, bev_hw=bev_hw, pc_range=pc_range, z_range=z_range,
             )
         )
     return np.stack(out)
@@ -217,6 +220,8 @@ class NuScenesDataset:
         depth_bins: int = 40,
         depth_min: float = 1.0,
         depth_max: float = 60.0,
+        feature_stride: int = 16,
+        camera_zbound: Optional[Tuple[float, float]] = None,
         use_native: bool = True,
         emit_uint8: bool = False,
         num_sweeps: int = 1,
@@ -247,12 +252,14 @@ class NuScenesDataset:
                 return_camera_cells = not return_camera_pairs
                 cull_points = bev_cfg.get("splat_cull_points", 0)
                 cull_pairs = bev_cfg.get("splat_cull_pairs", 0)
-                dataset_cfg = config.get("dataset", {}) or {}
-                bev_h = bev_cfg.get("bev_h", dataset_cfg.get("bev_h", 50))
-                bev_w = bev_cfg.get("bev_w", dataset_cfg.get("bev_w", 50))
-                depth_bins = bev_cfg.get("depth_bins", 40)
-                depth_min = bev_cfg.get("depth_min", 1.0)
-                depth_max = bev_cfg.get("depth_max", 60.0)
+                # the frustum's grid, feature stride and z range: the
+                # camera grid and encoder of the model's spec
+                model_spec = DetectorSpec.from_config(config)
+                bev_h, bev_w = model_spec.bev.camera_grid
+                depth_bins = model_spec.bev.depth_bins
+                depth_min, depth_max = model_spec.bev.depth_min, model_spec.bev.depth_max
+                feature_stride = model_spec.camera.total_stride
+                camera_zbound = model_spec.bev.camera_zbound
 
         self.data_root = Path(data_root)
         self.split = split
@@ -282,6 +289,7 @@ class NuScenesDataset:
         self.bev_h, self.bev_w = bev_h, bev_w
         self.depth_bins = depth_bins
         self.depth_min, self.depth_max = depth_min, depth_max
+        self.feature_stride, self.camera_zbound = feature_stride, camera_zbound
 
         with open(self.data_root / f"nuscenes_infos_{split}.pkl", "rb") as f:
             data = pickle.load(f)
@@ -436,7 +444,8 @@ class NuScenesDataset:
 
     def _frustum_cells(self, info) -> np.ndarray:
         return frustum_cells(info, self.image_size, (self.bev_h, self.bev_w), self.depth_bins,
-                             self.depth_min, self.depth_max, self.pc_range)
+                             self.depth_min, self.depth_max, self.pc_range, self.feature_stride,
+                             self.camera_zbound)
 
     def _pair_plans(self, camera_cells: np.ndarray) -> Dict[str, np.ndarray]:
         """(N_cam, D, H', W') cells -> the culled pair plans: seg_idx, seg_id

@@ -34,11 +34,12 @@ from torch import nn
 
 from ..config import DetectorSpec, load_config
 from ..parallel.view import ViewShard
+from ..utils.profiling import model_span
 from .encoders import (
     MultiRadarEncoder,
     PointNetLiDAREncoder,
-    ResNetCameraEncoder,
     VoxelNetLiDAREncoder,
+    camera_encoder,
 )
 from .fusion import FlexibleAttentionFusion, FlexibleBEVFusion, FlexibleLateFusion
 from .heads import CenterNetHead, MLPDetectionHead
@@ -53,7 +54,7 @@ class MultiModal3DDetector(nn.Module):
         self.view = None  # `shard_views`
         channels = {}
         if spec.use_camera:
-            self.camera_encoder = ResNetCameraEncoder(spec.camera, fold_bn=fold_bn)
+            self.camera_encoder = camera_encoder(spec.camera, fold_bn=fold_bn)
             channels["camera_channels"] = spec.camera.out_channels
         if spec.use_lidar:
             if spec.lidar.encoder_type.lower() == "voxelnet":
@@ -92,10 +93,12 @@ class MultiModal3DDetector(nn.Module):
         if s.use_camera:
             # NHWC views -> NCHW views
             imgs = camera_imgs.permute(0, 1, 4, 2, 3)
-            if self.view is not None and self.view.splits(imgs.shape[1]):
-                cam = self.view.encode_cameras(self.camera_encoder, imgs)
-            else:
-                cam = self.camera_encoder(imgs)
+            with model_span("camera.encode", imgs, images=imgs.shape[0] * imgs.shape[1]) as encode:
+                if self.view is not None and self.view.splits(imgs.shape[1]):
+                    cam = self.view.encode_cameras(self.camera_encoder, imgs)
+                else:
+                    cam = self.camera_encoder(imgs)
+                encode.set(cells=cam.shape[-2] * cam.shape[-1])
         if s.use_lidar:
             lidar = self.lidar_encoder(lidar_points)
         if s.use_radar:

@@ -7,6 +7,9 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/models/encoders.py``:
   ``remat`` checkpoints the trunk's residual blocks in training; under
   ``freeze_bn`` its BatchNorms stay in eval mode (running statistics, never
   updated) whatever ``train()`` asks.
+- `SwinCameraEncoder` (the port's own; the JAX package builds ResNet-18
+  whatever ``backbone`` says): BEVFusion's Swin-T and LSS-FPN neck to
+  stride 8, for ``backbone: swin_t``; `camera_encoder` picks one of the two.
 - `PointNetLiDAREncoder`, `RadarEncoder`, `MultiRadarEncoder` (``:141-283``):
   shared per-point MLPs + global max. In eval mode the whole chain runs as
   the fused PointNet (`ops.pointnet_fused`, BN folded from the module's own
@@ -37,11 +40,27 @@ from ..config import CameraEncoderSpec, LidarEncoderSpec, RadarEncoderSpec
 from ..ops.pointnet_fused import pointnet_fused
 from .batch_norm import FlaxBatchNorm1d, FlaxBatchNorm3d
 from .resnet import ResNet18Trunk, batch_norm
+from .swin import LSSFPN, SwinTransformer
 
 _NEG_INF = -1e9
 
 
-class ResNetCameraEncoder(nn.Module):
+class _CameraEncoder(nn.Module):
+    """What both camera encoders share: ``freeze_bn``."""
+
+    def train(self, mode: bool = True) -> "_CameraEncoder":
+        """`nn.Module.train`, except that under ``spec.freeze_bn`` the
+        BatchNorms stay in eval mode (the JAX encoder's ``bn_train = train
+        and not freeze_bn``): every ``model.train()`` reaches this."""
+        super().train(mode)
+        if self.spec.freeze_bn:
+            for m in self.modules():
+                if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                    m.train(False)
+        return self
+
+
+class ResNetCameraEncoder(_CameraEncoder):
     """(B, N_cam, 3, H, W) or (B*N_cam, 3, H, W) -> the same leading axes
     with (out_channels, H/16, W/16)."""
 
@@ -58,17 +77,6 @@ class ResNetCameraEncoder(nn.Module):
             self.channel_proj_bn = batch_norm(spec.out_channels)
         self.train(self.training)  # freeze_bn from the start
 
-    def train(self, mode: bool = True) -> "ResNetCameraEncoder":
-        """`nn.Module.train`, except that under ``spec.freeze_bn`` the
-        BatchNorms stay in eval mode (the JAX encoder's ``bn_train = train
-        and not freeze_bn``): every ``model.train()`` reaches this."""
-        super().train(mode)
-        if self.spec.freeze_bn:
-            for m in self.modules():
-                if isinstance(m, nn.modules.batchnorm._BatchNorm):
-                    m.train(False)
-        return self
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-3]
         x = x.reshape((-1,) + x.shape[-3:])
@@ -77,6 +85,38 @@ class ResNetCameraEncoder(nn.Module):
             x = self.channel_proj_bn(x)
         x = F.relu(x)
         return x.reshape(lead + x.shape[1:])
+
+
+class SwinCameraEncoder(_CameraEncoder):
+    """BEVFusion's camera stream before the view transform: the Swin trunk
+    (`models.swin.SwinTransformer`) and the LSS-FPN neck to
+    ``out_channels``. (B, N_cam, 3, H, W) or (B*N_cam, 3, H, W) -> the same
+    leading axes with (out_channels, H/stride, W/stride), the stride of the
+    first of ``swin.out_indices`` (8 for Swin-T's [1, 2, 3]), which
+    ``total_stride`` must state. No folded serving variant and no remat."""
+
+    def __init__(self, spec: CameraEncoderSpec, fold_bn: bool = False):
+        super().__init__()
+        if fold_bn:
+            raise ValueError("the Swin camera encoder has no folded-BatchNorm variant")
+        self.spec = spec
+        self.trunk = SwinTransformer(spec.swin)
+        if spec.total_stride != self.trunk.stride:
+            raise ValueError(f"camera_encoder.total_stride is {spec.total_stride}, but the Swin trunk's first "
+                             f"output stage is at stride {self.trunk.stride}")
+        self.neck = LSSFPN(self.trunk.out_channels, spec.out_channels)
+        self.train(self.training)  # freeze_bn from the start
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-3]
+        x = self.neck(self.trunk(x.reshape((-1,) + x.shape[-3:])))
+        return x.reshape(lead + x.shape[1:])
+
+
+def camera_encoder(spec: CameraEncoderSpec, fold_bn: bool = False) -> _CameraEncoder:
+    """The encoder ``spec.backbone`` names: Swin-T and its neck for a
+    Swin backbone, else ResNet-18."""
+    return SwinCameraEncoder(spec, fold_bn) if spec.is_swin else ResNetCameraEncoder(spec, fold_bn)
 
 
 class _PointMLP(nn.Module):

@@ -8,7 +8,8 @@ conv-BN-ReLU layers. The camera goes to the grid in one of two ways
 
 - ``pseudo``: mean over cameras, conv-BN-ReLU twice, bilinear resize;
 - ``geometric``: `GeometricCameraBEV`, a lift-splat over depth bins into
-  the BEV cells each frustum point falls in (``:58-158``), with the splat
+  the BEV cells each frustum point falls in (``:58-158``; the port's own
+  camera grid, width and downsample of BEVFusion's LSS), with the splat
   of ``splat_mode``: ``matmul``; ``pallas`` (kernel B2) at inference with
   chunk plans, else the matmul splat; ``culled`` with the culled pair plans
   (training too), else the matmul splat on the cells; ``scatter``, the
@@ -45,6 +46,7 @@ from ..ops.bev_splat import (
     lift_splat_matmul_rows,
     lift_splat_pallas_rows,
 )
+from ..utils.profiling import model_span
 from .resnet import batch_norm
 
 
@@ -64,17 +66,22 @@ def bilinear_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 class GeometricCameraBEV(nn.Module):
     """Lift-splat camera-to-BEV: per camera a 1x1 depth head predicts a
-    distribution over D depth bins and a 1x1 projection gives the BEV
-    channels; the features weighted by the depth probabilities are summed
-    into the cells of their frustum points, summed over cameras, and refined
-    by conv-BN-ReLU.
+    distribution over D depth bins and a 1x1 projection gives the camera's
+    BEV channels (`BEVFusionSpec.camera_width`); the features weighted by
+    the depth probabilities are summed into the cells of their frustum
+    points on the camera grid (`BEVFusionSpec.camera_grid`), summed over
+    cameras, and refined by conv-BN-ReLU, or, with ``camera_downsample``
+    2, taken to the fused grid by BEVFusion's downsample (conv-BN-ReLU, a
+    stride-2 conv-BN-ReLU, conv-BN-ReLU; convolutions without bias). The
+    two 1x1 convolutions are BEVFusion's one depth net to D + C channels,
+    split. Inside span ``camera.lift``.
 
     camera_features (B, N, C_cam, H', W'); camera_cells (B, N, D, H', W')
     int, -1 out of range; camera_chunks: the per-camera chunk plans
     (point_idx, local_ids, block_idx) of `ops.bev_pool.precompute_bev_chunks`;
     camera_pairs: the culled pair plans (seg_idx, seg_id, pair_cell,
     pair_pix) of `ops.bev_splat.precompute_culled_pairs`; each (B, N, ...).
-    Output (B, bev_channels, bev_h, bev_w)."""
+    Output (B, camera_width, bev_h, bev_w)."""
 
     SPLAT_MODES = ("matmul", "pallas", "culled", "scatter")
 
@@ -82,22 +89,36 @@ class GeometricCameraBEV(nn.Module):
         super().__init__()
         if spec.splat_mode not in self.SPLAT_MODES:
             raise ValueError(f"unknown splat_mode {spec.splat_mode!r}; one of {self.SPLAT_MODES}")
+        down = spec.camera_downsample
+        if down not in (1, 2):
+            raise ValueError(f"camera_downsample is 1 or 2, not {down}")
         self.spec = spec
-        c = spec.bev_channels
+        c = spec.camera_width
         self.depth_head = nn.Conv2d(camera_channels, spec.depth_bins, 1)
         self.feat_proj = nn.Conv2d(camera_channels, c, 1)
-        self.splat_refine_conv = nn.Conv2d(c, c, 3, 1, 1)
-        self.splat_refine_bn = batch_norm(c)
+        if down == 1:
+            self.splat_refine_conv = nn.Conv2d(c, c, 3, 1, 1)
+            self.splat_refine_bn = batch_norm(c)
+        else:
+            for i, stride in enumerate((1, down, 1), start=1):
+                self.add_module(f"downsample{i}_conv", nn.Conv2d(c, c, 3, stride, 1, bias=False))
+                self.add_module(f"downsample{i}_bn", batch_norm(c))
 
     def forward(self, camera_features: torch.Tensor, camera_cells: Optional[torch.Tensor] = None,
                 camera_chunks: Optional[Tuple[torch.Tensor, ...]] = None,
                 camera_pairs: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+        with model_span("camera.lift", camera_features, images=camera_features.shape[0] * camera_features.shape[1],
+                        cells=self.spec.camera_grid[0] * self.spec.camera_grid[1]):
+            return self._lift(camera_features, camera_cells, camera_chunks, camera_pairs)
+
+    def _lift(self, camera_features, camera_cells, camera_chunks, camera_pairs) -> torch.Tensor:
         s = self.spec
         b, n = camera_features.shape[:2]
         flat = camera_features.reshape((b * n,) + camera_features.shape[2:])
         depth_logits = self.depth_head(flat)
         feat = self.feat_proj(flat)
-        num_cells = s.bev_h * s.bev_w
+        grid_h, grid_w = s.camera_grid
+        num_cells = grid_h * grid_w
 
         def rows(plans):
             return (a.reshape((b * n,) + a.shape[2:]) for a in plans)
@@ -120,9 +141,12 @@ class GeometricCameraBEV(nn.Module):
                 bev = bev_scatter_add(lift_features(feat, depth_logits), cells, num_cells)
             else:
                 bev = lift_splat_matmul_rows(feat, depth_logits, cells, num_cells)
-        bev = bev.reshape(b, n, s.bev_h, s.bev_w, s.bev_channels).sum(dim=1)
-        bev = self.splat_refine_conv(bev.permute(0, 3, 1, 2))
-        return F.relu(self.splat_refine_bn(bev))
+        bev = bev.reshape(b, n, grid_h, grid_w, s.camera_width).sum(dim=1).permute(0, 3, 1, 2)
+        if s.camera_downsample == 1:
+            return F.relu(self.splat_refine_bn(self.splat_refine_conv(bev)))
+        for i in (1, 2, 3):
+            bev = F.relu(getattr(self, f"downsample{i}_bn")(getattr(self, f"downsample{i}_conv")(bev)))
+        return bev
 
 
 def _camera_vector(camera_features: torch.Tensor) -> torch.Tensor:
@@ -196,7 +220,9 @@ class FlexibleBEVFusion(_ConvBNBlocks):
         n_mod = int(use_camera) + int(use_lidar) + int(use_radar)
         if n_mod == 0:
             raise ValueError("No modality enabled")
-        self._add_conv_bn("bev_fusion1", n_mod * c, 2 * c, 3)
+        # the geometric camera map has its own width; every other map has c
+        camera_width = spec.camera_width if spec.camera_to_bev == "geometric" else c
+        self._add_conv_bn("bev_fusion1", n_mod * c + use_camera * (camera_width - c), 2 * c, 3)
         self._add_conv_bn("bev_fusion2", 2 * c, c, 3)
 
     def forward(self, camera_features: Optional[torch.Tensor] = None,

@@ -5,7 +5,8 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/ops/bev_splat.py``:
 
 - `precompute_frustum_cells` (``:59-102``, host numpy, the port's own copy):
   the flat BEV cell of every (depth, v, u) frustum point of one camera, -1
-  out of range. It depends on calibration only.
+  out of range (and, the port's own, out of an optional z range). It
+  depends on calibration only.
 - `bev_scatter_add` (``:38-56``): a segmented scatter-add of (..., P, C) rows
   into (..., num_cells, C), ids outside [0, num_cells) dropped; `lift_splat`
   (``:106-128``) lifts through it (``splat_mode: scatter``).
@@ -69,10 +70,12 @@ def precompute_frustum_cells(
     depth_bins: np.ndarray,
     bev_hw: Tuple[int, int],
     pc_range: Tuple[float, ...],
+    z_range: Optional[Tuple[float, float]] = None,
 ) -> np.ndarray:
     """(3, 3) intrinsics at image resolution, camera->LiDAR rotation and
     translation, (D,) metric depths -> (D, H', W') int32 flat BEV cell ids
-    (-1 = out of range)."""
+    (-1 = out of range: outside the grid's x and y, or with `z_range`
+    (z_min, z_max) outside [z_min, z_max), as BEVFusion's one z bin)."""
     fh, fw = feat_hw
     ih, iw = image_hw
     # pixel centres of the feature grid, scaled to image coordinates
@@ -92,6 +95,8 @@ def precompute_frustum_cells(
     ix = np.floor((pts[..., 0] - x_min) / vx).astype(np.int32)
     iy = np.floor((pts[..., 1] - y_min) / vy).astype(np.int32)
     valid = (ix >= 0) & (ix < bw) & (iy >= 0) & (iy < bh)
+    if z_range is not None:
+        valid &= (pts[..., 2] >= z_range[0]) & (pts[..., 2] < z_range[1])
     cells = np.where(valid, iy * bw + ix, -1)
     return cells.astype(np.int32)
 

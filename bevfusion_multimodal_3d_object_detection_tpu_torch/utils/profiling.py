@@ -24,6 +24,9 @@ step and the train step:
   that sees the thread shows it as a ``user_annotation``. With `device` it
   also records a CUDA event on the current stream at each edge. With no
   profile active it costs one flag check and reads no clock;
+- `model_span(name, like, **attrs)`: `span` inside the model (the camera
+  encoder's ``camera.encode`` and the lift's ``camera.lift``), a device span
+  on a CUDA tensor, skipped while `torch.compile` or `torch.export` traces;
 - `recorded_spans()`: the spans of the latest profiled stretch (a stretch
   begins with the first span that records after one found the profiler
   off), with each device span's stream time, read once it is complete.
@@ -119,6 +122,15 @@ def span(name: str, device: bool = False, **attrs):
         _stretch_ended = True
         return _OFF
     return _Span(name, device, attrs)
+
+
+def model_span(name: str, like: torch.Tensor, **attrs):
+    """A span inside the model: `span` with the CUDA stream time where
+    `like` lies on a CUDA device; nothing at all while `torch.compile` or
+    `torch.export` traces the model, so an exported program holds none."""
+    if torch.compiler.is_compiling():
+        return contextlib.nullcontext(_OFF)
+    return span(name, device=like.is_cuda, **attrs)
 
 
 def recorded_spans() -> List[Dict]:

@@ -65,6 +65,11 @@ def test_port_imports_without_jax():
     } <= imported
 
 
+# DetectorSpec keys the JAX package does not have: the Swin camera stream's
+PORT_ONLY_KEYS = {"camera": ("swin",), "bev": ("camera_bev_channels",
+                                               "camera_downsample", "camera_zbound")}
+
+
 @pytest.mark.parametrize("config", ["base.yaml", "bev100.yaml", "base.yaml:geometric", "base.yaml:train"])
 def test_config_parsing_matches_jax(config):
     """`:geometric` overrides base.yaml in memory with the geometric eval
@@ -85,9 +90,14 @@ def test_config_parsing_matches_jax(config):
         train = port_config.TrainSpec.from_config(cfg)
         assert train.mixed_precision and train.grad_accum_steps == 3 and train.loss_weights[2] != 1.0
     for name in ("DetectorSpec", "CompatFlags", "TrainSpec", "DataSpec", "ParallelSpec"):
-        port = getattr(port_config, name).from_config(cfg)
+        port = dataclasses.asdict(getattr(port_config, name).from_config(cfg))
         ref = getattr(jax_config, name).from_config(cfg)
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref), name
+        if name == "DetectorSpec":  # the port's own keys, at their defaults in these configs
+            default = dataclasses.asdict(port_config.DetectorSpec())
+            for section, keys in PORT_ONLY_KEYS.items():
+                for key in keys:
+                    assert port[section].pop(key) == default[section][key], (section, key)
+        assert port == dataclasses.asdict(ref), name
     for section in ("val", ("inference", "test")):
         assert dataclasses.asdict(
             port_config.PostProcessSpec.from_config(cfg, section)

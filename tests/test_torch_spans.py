@@ -144,8 +144,10 @@ def test_train_step_spans_and_bit_identical_losses(augment):
         assert g.keys() == w.keys() and all(torch.equal(g[k], w[k]) for k in g)
     for p, q in zip(new.model.parameters(), old.model.parameters()):
         assert torch.equal(p, q)
-    names = ["train.inputs", "train.forward", "train.backward", "train.optimizer"]
+    # the model's camera encoder records its own span inside the forward
+    names = ["train.inputs", "train.forward", "camera.encode", "train.backward", "train.optimizer"]
     assert [s["name"] for s in recorded_spans()] == names * len(batches)
+    assert all(s["parent"] == "train.forward" for s in _spans("camera.encode"))
     read = ("camera_imgs", "radar_points", "gt_boxes", "gt_labels")
     assert [s["attrs"] for s in _spans("train.inputs")] == [{"h2d_bytes": sum(b[k].nbytes for k in read)}
                                                             for b in batches]
