@@ -19,10 +19,11 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/data/dataset.py``
   every split (``:491-531``: capacities fixed once from sample 0 under a
   lock);
 - `frustum_cells` (``:535-570``) and `chunk_plans` (``:466-489``), which
-  the geometric eval path also calls on its own;
+  the geometric eval path also calls on its own; the plans are read-only,
+  one set a calibration in the caller's cache;
 - `SyntheticNuScenesDataset` (``:573-630``);
 - `collate_fn` (``:632-665``): GT padded to ``max_objects`` (boxes, label -1,
-  velocities);
+  velocities); a plan shared by the batch's samples stays one array;
 - `DataLoader` (``:668-776``): seeded shuffle, ``drop_last``, a prefetch
   thread that re-raises loader errors, ``num_workers`` loader threads, and
   the per-process (data-parallel: per-node) strided share of the epoch.
@@ -52,10 +53,8 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 CHUNK_KEYS = ("point_idx", "local_ids", "block_idx")
 PAIR_KEYS = ("seg_idx", "seg_id", "pair_cell", "pair_pix")
-_BATCH_KEYS = (
-    "camera_imgs", "lidar_points", "radar_points", "camera_cells",
-    *(f"camera_{k}" for k in CHUNK_KEYS + PAIR_KEYS),
-)
+_PLAN_KEYS = ("camera_cells", *(f"camera_{k}" for k in CHUNK_KEYS + PAIR_KEYS))
+_BATCH_KEYS = ("camera_imgs", "lidar_points", "radar_points", *_PLAN_KEYS)
 
 
 def _decode_image(path: Path, h: int, w: int, draft: bool):
@@ -168,26 +167,36 @@ def frustum_cells(
     return np.stack(out)
 
 
+def _cached_plans(cache: Optional[Dict], key, camera_cells: np.ndarray, plan_of, keys) -> Dict[str, np.ndarray]:
+    """The plans of a calibration's (N_cam, ...) cells: `plan_of(row)`, one
+    camera's plan, stacked over the cameras under `keys`, read-only. `cache`
+    (the caller's dict) keeps them by `key`, so a repeated calibration gets
+    the same arrays, which `collate_fn` shares across a batch and the eval
+    step copies to the device once; it is emptied past 256 camera plans to
+    bound host memory."""
+    plans = None if cache is None else cache.get(key)
+    if plans is None:
+        per_cam = [plan_of(cam_cells.reshape(-1)) for cam_cells in camera_cells]
+        plans = {k: np.stack([p[k] for p in per_cam]) for k in keys}
+        for a in plans.values():
+            a.setflags(write=False)
+        if cache is not None:
+            if (len(cache) + 1) * len(camera_cells) > 256:
+                cache.clear()
+            cache[key] = plans
+    return dict(plans)
+
+
 def chunk_plans(camera_cells: np.ndarray, num_cells: int,
                 cache: Optional[Dict] = None) -> Dict[str, np.ndarray]:
     """(N_cam, D, H', W') cells -> {point_idx, local_ids: (N_cam, n_chunks,
-    T), block_idx: (N_cam, n_chunks)} int32, one plan per camera.
+    T), block_idx: (N_cam, n_chunks)} int32, one plan per camera, read-only.
 
     `cache`, a dict the caller keeps (one per dataset, say), holds the plans
-    by the cells' bytes, since calibrations repeat across a scene; it is
-    emptied past 256 plans to bound host memory."""
-    per_cam = []
-    for cam_cells in camera_cells:
-        key = (num_cells, cam_cells.tobytes())
-        plan = None if cache is None else cache.get(key)
-        if plan is None:
-            plan = precompute_bev_chunks(cam_cells.reshape(-1), num_cells)
-            if cache is not None:
-                if len(cache) > 256:
-                    cache.clear()
-                cache[key] = plan
-        per_cam.append(plan)
-    return {k: np.stack([p[k] for p in per_cam]) for k in CHUNK_KEYS}
+    by the cells' bytes, since calibrations repeat across a scene: a
+    repeated calibration gets the same arrays (see `_cached_plans`)."""
+    key = (num_cells, camera_cells.shape, camera_cells.tobytes())
+    return _cached_plans(cache, key, camera_cells, lambda row: precompute_bev_chunks(row, num_cells), CHUNK_KEYS)
 
 
 class NuScenesDataset:
@@ -453,8 +462,8 @@ class NuScenesDataset:
         capacities are fixed once, whichever thread comes first: 5 % over
         sample 0's counts (or the config's), so every sample, thread, epoch
         and host gives one shape; a later sample that does not fit raises
-        with the config keys to set. Plans are cached by the cells' bytes
-        (emptied past 256)."""
+        with the config keys to set. The plans are read-only and cached by
+        the cells' bytes (`_cached_plans`)."""
         num_cells = self.bev_h * self.bev_w
         hw = camera_cells.shape[-2] * camera_cells.shape[-1]
         if self._cull_caps is None:
@@ -464,18 +473,11 @@ class NuScenesDataset:
                         self._frustum_cells(self.infos[0]), hw, num_cells, headroom=1.05, sizes_only=True,
                     )
         t_cap, u_cap = self._cull_caps
-        per_cam = []
-        for cam_cells in camera_cells:
-            key = cam_cells.tobytes()
-            plan = self._pair_cache.get(key)
-            if plan is None:
-                plan = precompute_culled_pairs(cam_cells.reshape(-1), hw, num_cells,
-                                               point_capacity=t_cap, pair_capacity=u_cap)
-                if len(self._pair_cache) > 256:
-                    self._pair_cache.clear()
-                self._pair_cache[key] = plan
-            per_cam.append(plan)
-        return {k: np.stack([p[k] for p in per_cam]) for k in PAIR_KEYS}
+        return _cached_plans(
+            self._pair_cache, (camera_cells.shape, camera_cells.tobytes()), camera_cells,
+            lambda row: precompute_culled_pairs(row, hw, num_cells, point_capacity=t_cap, pair_capacity=u_cap),
+            PAIR_KEYS,
+        )
 
 
 class SyntheticNuScenesDataset:
@@ -531,16 +533,29 @@ class SyntheticNuScenesDataset:
         }
 
 
+def _stacked(key: str, values: List[np.ndarray]) -> np.ndarray:
+    """`values` along a new batch axis. A plan that every sample holds as
+    the same read-only array (one calibration's, from `chunk_plans` or the
+    pair plans) becomes a read-only view of it with stride 0 on that axis:
+    the same values, and no copy."""
+    first = values[0]
+    if (key in _PLAN_KEYS and isinstance(first, np.ndarray) and not first.flags.writeable
+            and all(v is first for v in values)):
+        return np.broadcast_to(first[None], (len(values),) + first.shape)
+    return np.stack(values)
+
+
 def collate_fn(samples: List[Dict[str, np.ndarray]], max_objects: int = 500) -> Dict[str, np.ndarray]:
     """Stack the model inputs and, where the samples carry them, the frustum
     cells, the chunk plans (``camera_point_idx``, ``camera_local_ids``,
     ``camera_block_idx``) and the culled pair plans (``camera_seg_idx``,
     ``camera_seg_id``, ``camera_pair_cell``, ``camera_pair_pix``) along a new
-    batch axis. Samples with GT get it
+    batch axis; a plan that every sample shares read-only stays shared
+    (`_stacked`). Samples with GT get it
     padded to a fixed `max_objects`: boxes (B, M, 7) zero rows, labels
     (B, M) -1, velocities (B, M, 2); and their tokens as a list
     (the reference pads to the batch's largest, ref: train_detect.py:197-242)."""
-    out = {k: np.stack([s[k] for s in samples]) for k in _BATCH_KEYS if k in samples[0]}
+    out = {k: _stacked(k, [s[k] for s in samples]) for k in _BATCH_KEYS if k in samples[0]}
     if "gt_labels" in samples[0]:
         b = len(samples)
         gt_boxes = np.zeros((b, max_objects, 7), np.float32)

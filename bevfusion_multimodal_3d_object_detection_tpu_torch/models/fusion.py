@@ -111,6 +111,19 @@ class GeometricCameraBEV(nn.Module):
                         cells=self.spec.camera_grid[0] * self.spec.camera_grid[1]):
             return self._lift(camera_features, camera_cells, camera_chunks, camera_pairs)
 
+    def reads(self, chunks: bool, pairs: bool) -> str:
+        """The plans the lift reads, given whether it has the chunk and the
+        pair plans: ``"pairs"`` (the culled splat), ``"chunks"`` (kernel B2,
+        inference only, as in the JAX package) or ``"cells"`` (the matmul
+        or scatter splat: pallas in training or without chunk plans, and
+        culled without pair plans, take the matmul splat on the cells)."""
+        mode = self.spec.splat_mode
+        if mode == "culled" and pairs:
+            return "pairs"
+        if mode == "pallas" and chunks and not self.training:
+            return "chunks"
+        return "cells"
+
     def _lift(self, camera_features, camera_cells, camera_chunks, camera_pairs) -> torch.Tensor:
         s = self.spec
         b, n = camera_features.shape[:2]
@@ -123,17 +136,16 @@ class GeometricCameraBEV(nn.Module):
         def rows(plans):
             return (a.reshape((b * n,) + a.shape[2:]) for a in plans)
 
-        if s.splat_mode == "culled" and camera_pairs is not None:
+        plans = self.reads(camera_chunks is not None, camera_pairs is not None)
+        if plans == "pairs":
             # the culled, (cell, pixel)-grouped plans; differentiable
             bev = lift_splat_culled_rows(feat, depth_logits, *rows(camera_pairs), num_cells)
-        elif s.splat_mode == "pallas" and camera_chunks is not None and not self.training:
-            # kernel B2 (inference only, as in the JAX package); f32 out
+        elif plans == "chunks":
+            # kernel B2; f32 out
             bev = lift_splat_pallas_rows(
                 feat, depth_logits, *rows(camera_chunks), num_cells, num_cells_padded(num_cells)
             ).to(feat.dtype)
         else:
-            # as in JAX: pallas in training or without chunk plans and culled
-            # without pair plans take the matmul splat on the cells
             if camera_cells is None:
                 raise ValueError(f"splat_mode {s.splat_mode!r} without its plans needs camera_cells")
             cells = camera_cells.reshape(b * n, -1)

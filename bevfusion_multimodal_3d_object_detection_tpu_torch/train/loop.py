@@ -29,13 +29,16 @@ pair plans. The train step launches no hand-written kernel: the point
 encoders run their plain chain, as in the JAX package, whose Pallas kernels
 have no backward.
 
-Each step first moves every array it reads to the device, then computes;
+Each step first moves every array it reads to the device, then computes
+(the eval step moves a plan its rows share read-only once, `DevicePlans`);
 the spans of `utils.profiling.span` (recorded only while a profiler runs)
 mark the layers: ``eval.inputs`` (the copies, with ``h2d_bytes``, the host
-arrays' bytes) and ``eval.forward`` (model and decode); ``train.inputs``
-(likewise), then ``train.forward`` (augmentation, model, targets, loss),
-``train.backward`` and ``train.optimizer``, each of these three with its
-CUDA stream time; ``train.next_batch``, the Trainer's wait on its loader.
+bytes copied, and ``plan_hits``, the share of the plans read that were
+already on the device) and ``eval.forward`` (model and decode);
+``train.inputs`` (with ``h2d_bytes``, the host arrays' bytes), then
+``train.forward`` (augmentation, model, targets, loss), ``train.backward``
+and ``train.optimizer``, each of these three with its CUDA stream time;
+``train.next_batch``, the Trainer's wait on its loader.
 
 Data parallelism (``train/loop.py:139-152, 303-356, 430-470, 555-615`` of
 the JAX package, whose jit gives each step the global batch's semantics):
@@ -64,11 +67,13 @@ replicates them over the view axis, as JAX shards them over ``'data'``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
 import itertools
 import math
+import weakref
 from pathlib import Path
 from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -99,8 +104,11 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-# the geometric path's per-sample plans: frustum cells, chunk plans, culled pair plans
-_PLAN_KEYS = ("camera_cells", *(f"camera_{k}" for k in CHUNK_KEYS + PAIR_KEYS))
+# the geometric path's per-sample plans by what reads them (`GeometricCameraBEV.reads`):
+# frustum cells, chunk plans, culled pair plans
+_PLANS_READ = {"cells": ("camera_cells",), "chunks": tuple(f"camera_{k}" for k in CHUNK_KEYS),
+               "pairs": tuple(f"camera_{k}" for k in PAIR_KEYS)}
+_PLAN_KEYS = tuple(k for keys in _PLANS_READ.values() for k in keys)
 
 
 def _on_device(spec: DetectorSpec, batch: Dict, device: torch.device, targets: bool = False) -> Tuple[Dict, int]:
@@ -119,6 +127,96 @@ def _on_device(spec: DetectorSpec, batch: Dict, device: torch.device, targets: b
             nbytes += batch[k].nbytes
         out[k] = _tensor(batch[k], device)
     return out, nbytes
+
+
+def _plans_read(model: MultiModal3DDetector, batch: Dict) -> Tuple[str, ...]:
+    """The plan keys of `batch` that the model's lift reads in its current
+    mode (`GeometricCameraBEV.reads`); none without a geometric lift."""
+    lift = getattr(getattr(model, "fusion", None), "geometric_camera_bev", None)
+    if lift is None or not model.spec.use_camera:
+        return ()
+    plans = lift.reads(chunks="camera_point_idx" in batch, pairs="camera_seg_idx" in batch)
+    return tuple(k for k in _PLANS_READ[plans] if k in batch)
+
+
+class DevicePlans:
+    """Device copies of immutable host plans, each copied once.
+
+    A batch's plan qualifies when it is a view with stride 0 on the batch
+    axis (`data.dataset.collate_fn` of samples sharing one calibration's
+    plans) over the array that owns its memory, and that owner is read-only
+    and exactly each row: the same first byte, shape, strides and dtype.
+    The owner is then looked up by identity, through a weak reference, so an
+    entry goes when its owner is freed and a freed array's id never finds
+    a live entry; the `capacity` most recently used owners are kept. Any
+    other array is copied as it is, every time. Nothing compares contents:
+    a read-only owner cannot change under its entry."""
+
+    def __init__(self, device: torch.device, capacity: int = 8):
+        self.device, self.capacity = device, capacity
+        self._entries: "collections.OrderedDict[int, Tuple[weakref.ref, torch.Tensor]]" = collections.OrderedDict()
+        self.hits = self.misses = 0
+
+    @property
+    def entries(self) -> int:
+        return len(self._entries)
+
+    @staticmethod
+    def owner(a) -> Optional[np.ndarray]:
+        """The read-only array that every row of `a` is, else None."""
+        if not isinstance(a, np.ndarray) or a.ndim == 0 or a.shape[0] == 0 or a.strides[0] != 0:
+            return None
+        owner = a
+        while isinstance(owner.base, np.ndarray):
+            owner = owner.base
+        if (owner.flags.owndata and not owner.flags.writeable and owner.shape == a.shape[1:]
+                and owner.strides == a.strides[1:] and owner.dtype == a.dtype
+                and owner.ctypes.data == a.ctypes.data):
+            return owner
+        return None
+
+    def _evict(self, key: int, ref: weakref.ref) -> None:
+        entry = self._entries.get(key)
+        if entry is not None and entry[0] is ref:
+            del self._entries[key]
+
+    def tensor(self, a) -> Tuple[torch.Tensor, int, bool]:
+        """`a` on the device, the host bytes copied for it, and whether its
+        owner's copy was already there."""
+        owner = self.owner(a)
+        if owner is None:
+            return _tensor(a, self.device), a.nbytes if isinstance(a, np.ndarray) else 0, False
+        key = id(owner)
+        entry = self._entries.get(key)
+        hit = entry is not None and entry[0]() is owner
+        if hit:
+            self._entries.move_to_end(key)
+            self.hits += 1
+        else:
+            entry = (weakref.ref(owner, functools.partial(self._evict, key)),
+                     torch.tensor(owner, device=self.device))
+            self._entries[key] = entry
+            if len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+            self.misses += 1
+        return entry[1].expand(a.shape), 0 if hit else owner.nbytes, hit
+
+
+def _eval_on_device(model: MultiModal3DDetector, batch: Dict, device: torch.device,
+                    plans: DevicePlans) -> Tuple[Dict, int, Optional[float]]:
+    """`_on_device` for the eval step: the model's inputs, and of the plans
+    only those its lift reads, each through `plans` (the others are left
+    out of the batch). Returns the batch, the host bytes copied and the
+    share of the plans read that were already on the device (None when it
+    reads none)."""
+    read = _plans_read(model, batch)
+    out, nbytes = _on_device(model.spec, {k: v for k, v in batch.items() if k not in _PLAN_KEYS}, device)
+    hits = 0
+    for k in read:
+        out[k], copied, hit = plans.tensor(batch[k])
+        nbytes += copied
+        hits += hit
+    return out, nbytes, hits / len(read) if read else None
 
 
 def with_data_widths(spec: DetectorSpec, batch: Dict) -> DetectorSpec:
@@ -153,16 +251,10 @@ def _model_kwargs(spec: DetectorSpec, batch: Dict, device: torch.device) -> Dict
         kwargs["camera_cells"] = _tensor(batch["camera_cells"], device)
     if spec.use_camera and "camera_point_idx" in batch:
         # chunk plans of the fused splat (splat_mode: pallas, inference only)
-        kwargs["camera_chunks"] = tuple(
-            _tensor(batch[k], device)
-            for k in ("camera_point_idx", "camera_local_ids", "camera_block_idx")
-        )
+        kwargs["camera_chunks"] = tuple(_tensor(batch[k], device) for k in _PLANS_READ["chunks"])
     if spec.use_camera and "camera_seg_idx" in batch:
         # culled pair plans (splat_mode: culled): training and inference
-        kwargs["camera_pairs"] = tuple(
-            _tensor(batch[k], device)
-            for k in ("camera_seg_idx", "camera_seg_id", "camera_pair_cell", "camera_pair_pix")
-        )
+        kwargs["camera_pairs"] = tuple(_tensor(batch[k], device) for k in _PLANS_READ["pairs"])
     return kwargs
 
 
@@ -181,7 +273,13 @@ def make_eval_step(
 
     `eval_path_decode=True` decodes at voxel 0.512 when
     `compat.eval_decode_voxel_0512` (quirk Q3, the standalone eval and
-    inference path); otherwise the voxel is the grid's own, per axis."""
+    inference path); otherwise the voxel is the grid's own, per axis.
+
+    Of the geometric path's plans the step moves only those the lift reads
+    (`GeometricCameraBEV.reads`: B2's chunk plans without the frustum cells,
+    say), and a plan shared by the batch's rows, read-only, through its own
+    `DevicePlans` (``eval_step.plans``, with its ``hits``, ``misses`` and
+    ``entries``): once for as long as the host array lives."""
     device = resolve_device(device)
     spec = model.spec
     if eval_path_decode and compat.eval_decode_voxel_0512:
@@ -192,13 +290,16 @@ def make_eval_step(
     model.to(device).eval()
     # the head's: the point MLPs keep f32 parameters under a cast model
     dtype = next(model.det_head.parameters()).dtype
+    plans = DevicePlans(device)
 
     @torch.inference_mode()
     def eval_step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.eval()  # a train step on the same model may have run since
         with span("eval.inputs") as inputs:
-            batch, nbytes = _on_device(spec, batch, device)
+            batch, nbytes, hits = _eval_on_device(model, batch, device, plans)
             inputs.set(h2d_bytes=nbytes)
+            if hits is not None:
+                inputs.set(plan_hits=hits)
         with span("eval.forward"):
             preds = model(*_model_inputs(spec, batch, device, dtype), **_model_kwargs(spec, batch, device))
             if not spec.head_is_centernet:
@@ -211,6 +312,7 @@ def make_eval_step(
                 class_always_zero=compat.decode_class_always_zero,
             )
 
+    eval_step.plans = plans
     return eval_step
 
 
@@ -674,8 +776,7 @@ class Trainer:
                 break
             t0 = time.perf_counter()
             # the fused splat's chunk plans are for inference only
-            batch = {k: v for k, v in batch.items() if k not in (
-                "camera_point_idx", "camera_local_ids", "camera_block_idx")}
+            batch = {k: v for k, v in batch.items() if k not in _PLANS_READ["chunks"]}
             losses = self.train_step(batch)
             loss = float(losses["total_loss"])
             step_s = time.perf_counter() - t0

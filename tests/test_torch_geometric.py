@@ -222,8 +222,11 @@ def test_chunk_plans_and_collate_match_dataset():
     assert got.pop("tokens") == want.pop("tokens") == ["t"] * 3
     for k, v in got.items():
         assert v.dtype == want[k].dtype and np.array_equal(v, want[k]), k
-    # one plan per distinct camera, and a repeated calibration reads the cache
-    assert len(cache) == 12
+    # one stacked plan per distinct calibration, and a repeated calibration
+    # reads the cache: the same read-only arrays
+    assert len(cache) == 2
+    first, again = samples["port"][0], samples["port"][2]
+    assert all(first[k] is again[k] and not first[k].flags.writeable for k in CHUNK_KEYS)
     for key, plan in cache.items():
         cache[key] = dict(plan, block_idx=np.full_like(plan["block_idx"], 7))
     assert np.all(port_dataset.chunk_plans(cells, 2500, cache)["block_idx"] == 7)

@@ -7,8 +7,10 @@
   arrays' bytes; ``serve.launch`` and ``serve.fetch`` of the same batch numbers,
   all on the dispatch thread;
 - the eval step: ``eval.inputs`` (``h2d_bytes``: the bytes of every array it
-  reads, plans included) then ``eval.forward``, its outputs bit-identical to
-  the forward fed the numpy batch;
+  reads, of the plans B2's chunk plans and not the frustum cells, which its
+  lift does not read; ``plan_hits`` where it reads plans) then
+  ``eval.forward``, its outputs bit-identical to the forward fed the whole
+  numpy batch;
 - the train step: ``train.inputs``, ``train.forward``, ``train.backward`` and
   ``train.optimizer`` a step, and losses and parameters bit-identical to the
   step's parts run in turn on the numpy batch (as the step ran before it
@@ -103,11 +105,14 @@ def test_eval_step_moves_its_inputs_first(mode):
     step = port_loop.make_eval_step(model, port_config.CompatFlags(), device="cpu")
     with _profiled():
         got = step(batch)
-    read = [k for k in batch if k not in ("gt_boxes", "gt_labels")]
-    assert ("camera_cells" in read) is (mode == "geometric")
+    # pallas in eval with chunk plans: the lift reads them and not the cells
+    read = [k for k in batch if k not in ("gt_boxes", "gt_labels", "camera_cells")]
+    assert ("camera_point_idx" in read) is ("camera_cells" in batch) is (mode == "geometric")
     inputs, forward = _spans("eval.inputs"), _spans("eval.forward")
     assert len(inputs) == len(forward) == 1 and inputs[0]["end_ns"] <= forward[0]["start_ns"]
-    assert inputs[0]["attrs"] == {"h2d_bytes": sum(batch[k].nbytes for k in read)}
+    # the batch's plans are plain stacks: copied, none from the device cache
+    hits = {"plan_hits": 0.0} if mode == "geometric" else {}
+    assert inputs[0]["attrs"] == {"h2d_bytes": sum(batch[k].nbytes for k in read), **hits}
     with torch.inference_mode():  # the forward fed the numpy batch, as the step was before
         preds = model(*port_loop._model_inputs(spec, batch, torch.device("cpu"), torch.float32),
                       **port_loop._model_kwargs(spec, batch, torch.device("cpu")))
