@@ -179,11 +179,22 @@ class PostProcessSpec:
     the reference
     (configs/base.yaml:393-396, 416-419); honored here when
     compat.ignore_post_processing_config is False. Defaults mirror the
-    reference YAML values."""
+    reference YAML values. `resolve` decides which applies; None is no NMS,
+    no cap."""
 
     score_threshold: float = 0.3
-    nms_threshold: float = 0.5
-    max_detections: int = 100
+    nms_threshold: Optional[float] = 0.5
+    max_detections: Optional[int] = 100
+
+    @staticmethod
+    def resolve(cfg: Optional[Dict], compat: CompatFlags, section, score_threshold: float) -> "PostProcessSpec":
+        """The host post-processing of an entry point: `score_threshold`
+        alone (no NMS, no cap) under ``compat.ignore_post_processing_config``,
+        as the reference, which never reads the blocks; else `section`'s
+        block (`from_config`), whose score threshold replaces it."""
+        if compat.ignore_post_processing_config:
+            return PostProcessSpec(score_threshold, None, None)
+        return PostProcessSpec.from_config(cfg, section)
 
     @staticmethod
     def from_config(

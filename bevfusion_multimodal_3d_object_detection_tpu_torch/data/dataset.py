@@ -51,10 +51,16 @@ from .converter import quat_rotation_matrix, sensor_to_global, transform_points_
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
+# a batch's model inputs, and the geometric path's per-sample plans by what
+# reads them (`GeometricCameraBEV.reads`): frustum cells, chunk plans,
+# culled pair plans
+INPUT_KEYS = ("camera_imgs", "lidar_points", "radar_points")
 CHUNK_KEYS = ("point_idx", "local_ids", "block_idx")
 PAIR_KEYS = ("seg_idx", "seg_id", "pair_cell", "pair_pix")
-_PLAN_KEYS = ("camera_cells", *(f"camera_{k}" for k in CHUNK_KEYS + PAIR_KEYS))
-_BATCH_KEYS = ("camera_imgs", "lidar_points", "radar_points", *_PLAN_KEYS)
+PLAN_KEYS = {"cells": ("camera_cells",), "chunks": tuple(f"camera_{k}" for k in CHUNK_KEYS),
+             "pairs": tuple(f"camera_{k}" for k in PAIR_KEYS)}
+ALL_PLAN_KEYS = tuple(k for keys in PLAN_KEYS.values() for k in keys)
+_BATCH_KEYS = (*INPUT_KEYS, *ALL_PLAN_KEYS)
 
 
 def _decode_image(path: Path, h: int, w: int, draft: bool):
@@ -68,10 +74,15 @@ def _decode_image(path: Path, h: int, w: int, draft: bool):
     return img.convert("RGB").resize((w, h), Image.BILINEAR)
 
 
+def normalize_host_images(images) -> np.ndarray:
+    """uint8 RGB (..., H, W, 3) -> float32: [0,1] + ImageNet normalize, on
+    the host (the float wire)."""
+    return (np.asarray(images, np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+
+
 def _load_image(path: Path, h: int, w: int, draft: bool = False) -> np.ndarray:
     """PIL decode + bilinear resize + [0,1] + ImageNet normalize -> (H, W, 3)."""
-    arr = np.asarray(_decode_image(path, h, w, draft), np.float32) / 255.0
-    return (arr - IMAGENET_MEAN) / IMAGENET_STD
+    return normalize_host_images(_decode_image(path, h, w, draft))
 
 
 def parse_radar_pcd(path: Path) -> np.ndarray:
@@ -539,7 +550,7 @@ def _stacked(key: str, values: List[np.ndarray]) -> np.ndarray:
     pair plans) becomes a read-only view of it with stride 0 on that axis:
     the same values, and no copy."""
     first = values[0]
-    if (key in _PLAN_KEYS and isinstance(first, np.ndarray) and not first.flags.writeable
+    if (key in ALL_PLAN_KEYS and isinstance(first, np.ndarray) and not first.flags.writeable
             and all(v is first for v in values)):
         return np.broadcast_to(first[None], (len(values),) + first.shape)
     return np.stack(values)

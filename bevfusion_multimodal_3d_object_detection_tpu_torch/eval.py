@@ -93,20 +93,14 @@ def main(config_path: Optional[str] = None, device=None) -> Dict:
     eval_step = make_eval_step(model, compat, eval_path_decode=True, device=trainer.device)
 
     # the post-processing gate and its values come from the user's config;
-    # the Q10 model config only builds the model
+    # the Q10 model config only builds the model; score 0.0 is Q16's
     pp_compat = CompatFlags.from_config(loader_config) if loader_config else compat
-    pp = None
-    if not pp_compat.ignore_post_processing_config:
-        pp = PostProcessSpec.from_config(loader_config or model_config, "val")
+    pp = PostProcessSpec.resolve(loader_config or model_config, pp_compat, "val", 0.0)
 
     predictions, ground_truths = [], []
     for batch in val_loader:
-        decoded = eval_step(batch)
-        if pp is None:
-            dets = decode_to_host(decoded, score_thresh=0.0)  # Q16
-        else:
-            dets = decode_to_host(decoded, score_thresh=pp.score_threshold,
-                                  nms_thresh=pp.nms_threshold, max_detections=pp.max_detections)
+        dets = decode_to_host(eval_step(batch), score_thresh=pp.score_threshold, nms_thresh=pp.nms_threshold,
+                              max_detections=pp.max_detections)
         predictions.extend(dets)
         for bi in range(len(dets)):
             ground_truths.append({"boxes": np.asarray(batch["gt_boxes"][bi]),

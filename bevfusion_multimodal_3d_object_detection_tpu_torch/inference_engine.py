@@ -37,10 +37,10 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_CLASSES, CompatFlags, DetectorSpec, PostProcessSpec, load_config
+from .data.dataset import IMAGENET_MEAN, IMAGENET_STD
 from .models.detector import MultiModal3DDetector
-from .ops.decode import decode_centernet_predictions, decode_to_host
-from .ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
-from .train.loop import _model_inputs, mlp_detections
+from .ops.decode import centernet_decoder, decode_to_host
+from .train.loop import mlp_detections
 from .utils.convert import load_jax_variables
 from .utils.device import resolve_device
 from .utils.restore import load_serving_variables
@@ -115,11 +115,7 @@ class InferenceEngine:
                 "(models/fusion.py:197-209), the port raises (ROADMAP C)"
             )
         self.classes = list((self.config.get("dataset", {}) or {}).get("classes", DEFAULT_CLASSES))
-        self.score_threshold = score_threshold
-        self.post_process = None
-        if not self.compat.ignore_post_processing_config:
-            self.post_process = PostProcessSpec.from_config(self.config, ("inference", "test"))
-            self.score_threshold = self.post_process.score_threshold
+        self.post_process = PostProcessSpec.resolve(self.config, self.compat, ("inference", "test"), score_threshold)
         inference_cfg = self.config.get("inference", {}) or {}
         self.save_predictions = bool(inference_cfg.get("save_predictions", True))
         # checkpoints restore into the unfolded tree; the serving model then
@@ -131,11 +127,7 @@ class InferenceEngine:
         self.variables = None
         if model_path is not None:
             self.load_model(model_path)
-        if self.compat.eval_decode_voxel_0512:
-            self.voxel_size = 0.512  # Q3
-        else:
-            x0, y0, _, x1, y1, _ = self.spec.bev.pc_range
-            self.voxel_size = ((x1 - x0) / self.spec.bev.bev_w, (y1 - y0) / self.spec.bev.bev_h)
+        self.decode = centernet_decoder(self.spec, self.compat, eval_path=True)
 
     # -- model ---------------------------------------------------------------
     def _set_variables(self, variables: Dict) -> None:
@@ -172,19 +164,11 @@ class InferenceEngine:
         """One sample's predictions (NHWC maps, or the MLP head's {'cls',
         'box'}; batch 1) and the maps' fixed-size decode (None for the MLP
         head), on the device."""
-        batch = {k: np.asarray(sample[k])[None] for k in ("camera_imgs", "lidar_points", "radar_points")
-                 if k in sample}
-        preds = self.model(*_model_inputs(self.spec, batch, self.device, torch.float32))
+        batch = {k: torch.as_tensor(np.asarray(sample[k])[None], device=self.device) for k in self.model.reads(sample)}
+        preds = self.model(**self.model.forward_inputs(batch))
         if not self.spec.head_is_centernet:
             return preds, None
-        decoded = decode_centernet_predictions(
-            preds,
-            max_detections=self.spec.centernet.max_detections,
-            voxel_size=self.voxel_size,
-            pc_range=self.spec.bev.pc_range,
-            class_always_zero=self.compat.decode_class_always_zero,
-        )
-        return preds, decoded
+        return preds, self.decode(preds)
 
     # -- inference -----------------------------------------------------------
     def run_inference(self, sample: Dict, visualize: bool = True, save_dir: Optional[str] = None) -> Dict:
@@ -196,12 +180,9 @@ class InferenceEngine:
         if decoded is None:  # the MLP head (inference_engine.py:288-299 of the JAX package)
             dets = dict(mlp_detections(preds)[0], velocities=np.zeros((1, 2)))
         else:
-            dets = decode_to_host(
-                decoded,
-                score_thresh=self.score_threshold,
-                nms_thresh=self.post_process.nms_threshold if self.post_process else None,
-                max_detections=self.post_process.max_detections if self.post_process else None,
-            )[0]
+            pp = self.post_process
+            dets = decode_to_host(decoded, score_thresh=pp.score_threshold, nms_thresh=pp.nms_threshold,
+                                  max_detections=pp.max_detections)[0]
         elapsed = time.perf_counter() - t0
 
         p, r, f1, tp, fp, fn = precision_recall_f1(dets["boxes"], _labelled_gt(sample))

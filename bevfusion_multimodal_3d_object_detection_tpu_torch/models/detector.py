@@ -17,6 +17,13 @@ with like:
 and the prediction maps come back NHWC; the MLP head gives {'cls', 'box'}.
 Inside, everything is NCHW.
 
+A collated batch (`data.dataset.collate_fn`) reaches the model through two
+methods: `reads` names the keys the forward reads in the model's current
+mode (the inputs of its modalities, and of the geometric lift's plans those
+it reads), and `forward_inputs` turns those keys, once on the device, into
+the forward's keyword arguments (the uint8 wire normalized, each input in
+`working_dtype`).
+
 `shard_views` puts the model on a view axis (`parallel.view`): the camera
 trunk runs on this rank's block of cameras when the camera axis divides by
 it (else on every camera, replicated), and with `bev_spatial` the CenterNet
@@ -33,6 +40,8 @@ import torch
 from torch import nn
 
 from ..config import DetectorSpec, load_config
+from ..data.dataset import INPUT_KEYS, PLAN_KEYS
+from ..ops.preprocess import normalize_images
 from ..parallel.view import ViewShard
 from ..utils.profiling import model_span
 from .encoders import (
@@ -117,6 +126,47 @@ class MultiModal3DDetector(nn.Module):
         if not s.head_is_centernet:
             return preds
         return {k: v.permute(0, 2, 3, 1) for k, v in preds.items()}
+
+    @property
+    def working_dtype(self) -> torch.dtype:
+        """The dtype the forward takes its inputs in: the head's (the point
+        MLPs keep f32 parameters under a cast model)."""
+        return next(self.det_head.parameters()).dtype
+
+    def reads(self, batch) -> Tuple[str, ...]:
+        """The keys of `batch` that the forward reads in the model's current
+        mode: the inputs of its modalities, then of the geometric lift's
+        plans those it reads (`GeometricCameraBEV.reads`: in eval, B2's
+        chunk plans and not the frustum cells, say; in training never the
+        chunk plans)."""
+        s = self.spec
+        keys = tuple(k for k, used in zip(INPUT_KEYS, (s.use_camera, s.use_lidar, s.use_radar)) if used)
+        lift = getattr(self.fusion, "geometric_camera_bev", None)
+        if lift is None:
+            return keys
+        plans = lift.reads(chunks=PLAN_KEYS["chunks"][0] in batch, pairs=PLAN_KEYS["pairs"][0] in batch)
+        return keys + tuple(k for k in PLAN_KEYS[plans] if k in batch)
+
+    def forward_inputs(self, batch) -> Dict:
+        """The forward's keyword arguments from `batch`, whose keys that
+        `reads` names are tensors on the model's device: uint8 cameras
+        normalized (the uint8 wire), each input in `working_dtype`, and the
+        plans as ``camera_cells``, ``camera_chunks`` and ``camera_pairs``."""
+        read = self.reads(batch)
+        dtype = self.working_dtype
+        out = {}
+        for key in INPUT_KEYS:
+            if key in read:
+                x = batch[key]
+                if key == "camera_imgs" and x.dtype == torch.uint8:
+                    x = normalize_images(x, size=self.spec.camera.image_size)
+                out[key] = x.to(dtype)
+        if "camera_cells" in read:
+            out["camera_cells"] = batch["camera_cells"]
+        for name, plans in (("camera_chunks", "chunks"), ("camera_pairs", "pairs")):
+            if PLAN_KEYS[plans][0] in read:
+                out[name] = tuple(batch[k] for k in PLAN_KEYS[plans])
+        return out
 
     def shard_views(self, view) -> "MultiModal3DDetector":
         """Run on `view` (a `parallel.view.ViewShard` or `LocalViews`; None:

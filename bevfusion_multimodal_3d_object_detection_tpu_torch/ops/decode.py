@@ -2,8 +2,10 @@
 
 Port of ``bevfusion_multimodal_3d_object_detection_tpu/ops/decode.py:42-241``.
 `heatmap_nms` and `decode_centernet_predictions` run in torch on the
-predictions' device; `bev_iou_matrix`, `nms_bev` and `decode_to_host` are the
-port's own numpy copies of the host-side post-processing.
+predictions' device; `centernet_decoder` binds the latter to a model's grid
+and flags once. `bev_iou_matrix`, `nms_bev`, `filter_detections` (one
+sample's threshold, NMS and cap) and `decode_to_host` are the port's own
+numpy copies of the host-side post-processing.
 
 Compat flags, as in the JAX package: `class_always_zero` (quirk Q1: every
 label is 0), `voxel_size` scalar (Q3: 0.512 on the eval/inference paths) or
@@ -14,13 +16,17 @@ back in another order.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+import functools
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import DEFAULT_PC_RANGE
+
+if TYPE_CHECKING:
+    from ..config import CompatFlags, DetectorSpec
 
 
 def heatmap_nms(heatmap: torch.Tensor, kernel: int = 3) -> torch.Tensor:
@@ -82,6 +88,28 @@ def decode_centernet_predictions(
     }
 
 
+def centernet_decoder(spec: "DetectorSpec", compat: "CompatFlags", eval_path: bool,
+                      max_detections: Optional[int] = None) -> Callable[[Dict[str, torch.Tensor]], Dict]:
+    """`decode_centernet_predictions` bound to the model of `spec`: its
+    ``pc_range``, `max_detections` (the head's ``max_detections`` when None),
+    Q1's ``compat.decode_class_always_zero``, and the voxel: 0.512 on the
+    standalone eval and inference path (`eval_path`) under
+    ``compat.eval_decode_voxel_0512`` (quirk Q3), else the grid's own, per
+    axis."""
+    if eval_path and compat.eval_decode_voxel_0512:
+        voxel_size = 0.512
+    else:
+        x_min, y_min, _, x_max, y_max, _ = spec.bev.pc_range
+        voxel_size = ((x_max - x_min) / spec.bev.bev_w, (y_max - y_min) / spec.bev.bev_h)
+    return functools.partial(
+        decode_centernet_predictions,
+        max_detections=spec.centernet.max_detections if max_detections is None else max_detections,
+        voxel_size=voxel_size,
+        pc_range=spec.bev.pc_range,
+        class_always_zero=compat.decode_class_always_zero,
+    )
+
+
 def bev_iou_matrix(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
     """Axis-aligned BEV IoU between (N, 7+) and (M, 7+) boxes
     ((x, y, z, w, l, h, yaw); yaw ignored)."""
@@ -119,6 +147,24 @@ def nms_bev(det: Dict[str, np.ndarray], iou_thresh: float) -> Dict[str, np.ndarr
     return {k: v[keep] for k, v in det.items()}
 
 
+def filter_detections(
+    det: Dict[str, np.ndarray],
+    score_thresh: float,
+    nms_thresh: Optional[float] = None,
+    max_detections: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """One sample's fixed-size host arrays (``boxes``, ``scores`` and any
+    other per-detection keys) -> those above `score_thresh`, optionally
+    BEV-NMS'd and capped."""
+    keep = det["scores"] > score_thresh
+    det = {k: v[keep] for k, v in det.items()}
+    if nms_thresh is not None:
+        det = nms_bev(det, nms_thresh)
+    if max_detections is not None and len(det["scores"]) > max_detections:
+        det = {k: v[:max_detections] for k, v in det.items()}
+    return det
+
+
 def decode_to_host(
     decoded: Dict[str, torch.Tensor],
     score_thresh: float = 0.3,
@@ -126,20 +172,11 @@ def decode_to_host(
     max_detections: Optional[int] = None,
 ) -> List[Dict[str, np.ndarray]]:
     """Fixed-size decode output -> per-sample list of dicts above
-    `score_thresh`, optionally BEV-NMS'd and capped."""
+    `score_thresh`, optionally BEV-NMS'd and capped (`filter_detections`)."""
     host = {k: v.detach().cpu().numpy() for k, v in decoded.items()}
-    out = []
-    for bi in range(host["boxes"].shape[0]):
-        m = host["scores"][bi] > score_thresh
-        det = {
-            "boxes": host["boxes"][bi][m],
-            "scores": host["scores"][bi][m],
-            "labels": host["labels"][bi][m].astype(np.int64),
-            "velocities": host["velocities"][bi][m],
-        }
-        if nms_thresh is not None:
-            det = nms_bev(det, nms_thresh)
-        if max_detections is not None and len(det["scores"]) > max_detections:
-            det = {k: v[:max_detections] for k, v in det.items()}
-        out.append(det)
-    return out
+    labels = host["labels"].astype(np.int64)
+    return [
+        filter_detections({"boxes": host["boxes"][bi], "scores": host["scores"][bi], "labels": labels[bi],
+                           "velocities": host["velocities"][bi]}, score_thresh, nms_thresh, max_detections)
+        for bi in range(host["boxes"].shape[0])
+    ]

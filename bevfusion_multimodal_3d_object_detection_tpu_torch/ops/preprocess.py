@@ -18,13 +18,10 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
+from ..data.dataset import IMAGENET_MEAN, IMAGENET_STD
 from ..models.fusion import bilinear_resize
-
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def normalize_images(images: torch.Tensor, size: Tuple[int, int] = (448, 800)) -> torch.Tensor:

@@ -71,9 +71,9 @@ import numpy as np
 import torch
 
 from .config import CompatFlags, DetectorSpec, PostProcessSpec, load_config
+from .data.dataset import normalize_host_images
 from .models.detector import MultiModal3DDetector
-from .ops.decode import decode_centernet_predictions, nms_bev
-from .ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, normalize_images
+from .ops.decode import centernet_decoder, filter_detections
 from .parallel.view import LocalViews
 from .utils.convert import load_jax_variables
 from .utils.device import resolve_device
@@ -139,12 +139,8 @@ class InferenceServer:
         self.compat = CompatFlags.from_config(self.config)
         self.batch_size = batch_size
         self.max_delay_s = max_delay_ms / 1000.0
-        self.score_threshold = score_threshold
         self.fold_bn = fold_bn
-        self.post_process = None
-        if not self.compat.ignore_post_processing_config:
-            self.post_process = PostProcessSpec.from_config(self.config, ("inference", "test"))
-            self.score_threshold = self.post_process.score_threshold
+        self.post_process = PostProcessSpec.resolve(self.config, self.compat, ("inference", "test"), score_threshold)
         self.dtype = torch.bfloat16 if use_bf16 else torch.float32
 
         if variables is None:
@@ -172,11 +168,7 @@ class InferenceServer:
             for (replica, _, _), row in zip(self.replicas, grid):
                 replica.shard_views(LocalViews(replica.camera_encoder, row))
 
-        if self.compat.eval_decode_voxel_0512:
-            self.voxel_size = 0.512  # Q3
-        else:
-            x0, y0, _, x1, y1, _ = self.spec.bev.pc_range
-            self.voxel_size = ((x1 - x0) / self.spec.bev.bev_w, (y1 - y0) / self.spec.bev.bev_h)
+        self.decode = centernet_decoder(self.spec, self.compat, eval_path=True)
 
         self.aot_meta = None
         if aot_path is not None:
@@ -337,21 +329,9 @@ class InferenceServer:
     def _serve_body(self, cams: torch.Tensor, lidar: torch.Tensor, radars: torch.Tensor, model=None):
         """Forward + decode of one staged batch on `model` (the first
         replica by default); `utils.aot` exports it."""
-        s = self.spec
-        if cams.dtype == torch.uint8:
-            cams = normalize_images(cams, size=s.camera.image_size)
-        preds = (self.model if model is None else model)(
-            cams.to(self.dtype) if s.use_camera else None,
-            lidar if s.use_lidar else None,
-            radars if s.use_radar else None,
-        )
-        return decode_centernet_predictions(
-            preds,
-            max_detections=s.centernet.max_detections,
-            voxel_size=self.voxel_size,
-            pc_range=s.bev.pc_range,
-            class_always_zero=self.compat.decode_class_always_zero,
-        )
+        model = self.model if model is None else model
+        batch = {"camera_imgs": cams, "lidar_points": lidar, "radar_points": radars}
+        return self.decode(model(**model.forward_inputs(batch)))
 
     def _stage(self, samples: List[Dict]):
         """Samples (at most batch_size) -> the host tensors of one padded
@@ -373,16 +353,8 @@ class InferenceServer:
         n = len(samples)
         if len({np.asarray(s["camera_imgs"]).dtype for s in samples}) > 1:
             # np.stack would promote uint8 rows to float without normalizing
-            samples = [
-                dict(
-                    s,
-                    camera_imgs=(np.asarray(s["camera_imgs"], np.float32) / 255.0 - IMAGENET_MEAN)
-                    / IMAGENET_STD,
-                )
-                if np.asarray(s["camera_imgs"]).dtype == np.uint8
-                else s
-                for s in samples
-            ]
+            samples = [dict(s, camera_imgs=normalize_host_images(s["camera_imgs"]))
+                       if np.asarray(s["camera_imgs"]).dtype == np.uint8 else s for s in samples]
         rows = [[np.asarray(s[key]) for s in samples] for key in ("camera_imgs", "lidar_points", "radar_points")]
         slot = self._slot(tuple((np.result_type(*(r.dtype for r in key_rows)), key_rows[0].shape)
                                 for key_rows in rows))
@@ -495,17 +467,9 @@ class InferenceServer:
         )
         scores = host["scores"].float().numpy()
         labels = host["labels"].numpy().astype(np.int64)
-        results = []
-        for i in range(n):
-            keep = scores[i] > self.score_threshold
-            res = {"boxes": boxes[i][keep], "scores": scores[i][keep], "labels": labels[i][keep]}
-            if self.post_process is not None:
-                res = nms_bev(res, self.post_process.nms_threshold)
-                cap = self.post_process.max_detections
-                if len(res["scores"]) > cap:
-                    res = {k: v[:cap] for k, v in res.items()}
-            results.append(res)
-        return results
+        pp = self.post_process
+        return [filter_detections({"boxes": boxes[i], "scores": scores[i], "labels": labels[i]},
+                                  pp.score_threshold, pp.nms_threshold, pp.max_detections) for i in range(n)]
 
     def _run_batch(self, samples: List[Dict]) -> List[Dict]:
         """Synchronous path (warmup, tests, timing): launch + fetch."""

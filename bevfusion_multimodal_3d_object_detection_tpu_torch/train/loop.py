@@ -18,19 +18,22 @@ Port of ``bevfusion_multimodal_3d_object_detection_tpu/train/loop.py``
   with mAP/NDS, and checkpoints in the JAX package's layout.
 
 The batch is the JAX package's dict of numpy arrays
-(`data.dataset.collate_fn`, plus ``gt_boxes`` and ``gt_labels`` to train):
-uint8 cameras are normalized on the device, and the geometric path's
-``camera_cells``, chunk plans (``camera_point_idx``, ``camera_local_ids``,
-``camera_block_idx``) and culled pair plans (``camera_seg_idx``,
-``camera_seg_id``, ``camera_pair_cell``, ``camera_pair_pix``) go to the model
-as in the JAX package; in training the pallas splat's branch ignores the
-chunk plans and takes the matmul splat, while the culled splat trains on its
-pair plans. The train step launches no hand-written kernel: the point
-encoders run their plain chain, as in the JAX package, whose Pallas kernels
-have no backward.
+(`data.dataset.collate_fn`, plus ``gt_boxes`` and ``gt_labels`` to train).
+Of it the model reads what `MultiModal3DDetector.reads` names in its mode:
+the inputs of its modalities and, on the geometric path, the plans its lift
+reads of the ``camera_cells``, chunk plans (``camera_point_idx``,
+``camera_local_ids``, ``camera_block_idx``) and culled pair plans
+(``camera_seg_idx``, ``camera_seg_id``, ``camera_pair_cell``,
+``camera_pair_pix``), as in the JAX package: in training the pallas
+splat's branch ignores the chunk plans and takes the matmul splat, while the
+culled splat trains on its pair plans. The train step launches no
+hand-written kernel: the point encoders run their plain chain, as in the JAX
+package, whose Pallas kernels have no backward.
 
-Each step first moves every array it reads to the device, then computes
-(the eval step moves a plan its rows share read-only once, `DevicePlans`);
+Each step first moves those arrays to the device (`_on_device`; the eval
+step moves a plan its rows share read-only once, `DevicePlans`), then
+computes on `MultiModal3DDetector.forward_inputs` (uint8 cameras normalized
+on the device);
 the spans of `utils.profiling.span` (recorded only while a profiler runs)
 mark the layers: ``eval.inputs`` (the copies, with ``h2d_bytes``, the host
 bytes copied, and ``plan_hits``, the share of the plans read that were
@@ -80,14 +83,13 @@ from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
-from ..config import AugmentSpec, CompatFlags, DetectorSpec, TrainSpec
-from ..data.dataset import CHUNK_KEYS, PAIR_KEYS
+from ..config import AugmentSpec, CompatFlags, DetectorSpec, PostProcessSpec, TrainSpec
+from ..data.dataset import ALL_PLAN_KEYS
 from ..models.batch_norm import global_statistics
 from ..models.detector import MultiModal3DDetector
 from ..ops.augment import augment_modalities, draw_augmentation, step_generator
-from ..ops.decode import decode_centernet_predictions
+from ..ops.decode import centernet_decoder
 from ..ops.losses import centernet_loss, detection_loss, prepare_mlp_targets
-from ..ops.preprocess import normalize_images
 from ..ops.targets import prepare_centernet_targets
 from ..parallel.distributed import barrier, sum_flat
 from ..parallel.view import partial_modules
@@ -102,41 +104,6 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-
-# the geometric path's per-sample plans by what reads them (`GeometricCameraBEV.reads`):
-# frustum cells, chunk plans, culled pair plans
-_PLANS_READ = {"cells": ("camera_cells",), "chunks": tuple(f"camera_{k}" for k in CHUNK_KEYS),
-               "pairs": tuple(f"camera_{k}" for k in PAIR_KEYS)}
-_PLAN_KEYS = tuple(k for keys in _PLANS_READ.values() for k in keys)
-
-
-def _on_device(spec: DetectorSpec, batch: Dict, device: torch.device, targets: bool = False) -> Tuple[Dict, int]:
-    """The batch with every array a step reads on `device` (the model's
-    inputs and plans, and with `targets` the ground truth), unchanged in
-    dtype, and the bytes of those that were numpy arrays."""
-    keys = [k for k, used in (("camera_imgs", spec.use_camera), ("lidar_points", spec.use_lidar),
-                              ("radar_points", spec.use_radar)) if used]
-    if spec.use_camera:
-        keys += [k for k in _PLAN_KEYS if k in batch]
-    if targets:
-        keys += ["gt_boxes", "gt_labels"]
-    out, nbytes = dict(batch), 0
-    for k in keys:
-        if isinstance(batch[k], np.ndarray):
-            nbytes += batch[k].nbytes
-        out[k] = _tensor(batch[k], device)
-    return out, nbytes
-
-
-def _plans_read(model: MultiModal3DDetector, batch: Dict) -> Tuple[str, ...]:
-    """The plan keys of `batch` that the model's lift reads in its current
-    mode (`GeometricCameraBEV.reads`); none without a geometric lift."""
-    lift = getattr(getattr(model, "fusion", None), "geometric_camera_bev", None)
-    if lift is None or not model.spec.use_camera:
-        return ()
-    plans = lift.reads(chunks="camera_point_idx" in batch, pairs="camera_seg_idx" in batch)
-    return tuple(k for k in _PLANS_READ[plans] if k in batch)
 
 
 class DevicePlans:
@@ -202,21 +169,27 @@ class DevicePlans:
         return entry[1].expand(a.shape), 0 if hit else owner.nbytes, hit
 
 
-def _eval_on_device(model: MultiModal3DDetector, batch: Dict, device: torch.device,
-                    plans: DevicePlans) -> Tuple[Dict, int, Optional[float]]:
-    """`_on_device` for the eval step: the model's inputs, and of the plans
-    only those its lift reads, each through `plans` (the others are left
-    out of the batch). Returns the batch, the host bytes copied and the
-    share of the plans read that were already on the device (None when it
-    reads none)."""
-    read = _plans_read(model, batch)
-    out, nbytes = _on_device(model.spec, {k: v for k, v in batch.items() if k not in _PLAN_KEYS}, device)
-    hits = 0
-    for k in read:
-        out[k], copied, hit = plans.tensor(batch[k])
+def _on_device(model: MultiModal3DDetector, batch: Dict, device: torch.device, plans: Optional[DevicePlans] = None,
+               targets: bool = False) -> Tuple[Dict, int, Optional[float]]:
+    """The batch with the arrays that the model reads in its current mode
+    (`MultiModal3DDetector.reads`), and with `targets` the ground truth, on
+    `device`, unchanged in dtype; the plans it does not read are left out.
+    With `plans` (the eval step's) each plan goes through it. Returns the
+    batch, the host bytes copied and the share of the plans read that were
+    already on the device (None without `plans` or when it reads none)."""
+    keys = model.reads(batch) + (("gt_boxes", "gt_labels") if targets else ())
+    out = {k: v for k, v in batch.items() if k not in ALL_PLAN_KEYS}
+    nbytes = hits = n_plans = 0
+    for k in keys:
+        if plans is not None and k in ALL_PLAN_KEYS:
+            out[k], copied, hit = plans.tensor(batch[k])
+            hits += hit
+            n_plans += 1
+        else:
+            out[k] = _tensor(batch[k], device)
+            copied = batch[k].nbytes if isinstance(batch[k], np.ndarray) else 0
         nbytes += copied
-        hits += hit
-    return out, nbytes, hits / len(read) if read else None
+    return out, nbytes, hits / n_plans if n_plans else None
 
 
 def with_data_widths(spec: DetectorSpec, batch: Dict) -> DetectorSpec:
@@ -228,34 +201,6 @@ def with_data_widths(spec: DetectorSpec, batch: Dict) -> DetectorSpec:
         return spec
     width = int(np.shape(batch["lidar_points"])[-1])
     return dataclasses.replace(spec, lidar=dataclasses.replace(spec.lidar, input_channels=width))
-
-
-def _model_inputs(spec: DetectorSpec, batch: Dict, device: torch.device,
-                  dtype: torch.dtype) -> Tuple[Optional[torch.Tensor], ...]:
-    cams = lidar = radar = None
-    if spec.use_camera:
-        cams = _tensor(batch["camera_imgs"], device)
-        if cams.dtype == torch.uint8:  # the uint8 wire: normalize on the device
-            cams = normalize_images(cams, size=spec.camera.image_size)
-        cams = cams.to(dtype)
-    if spec.use_lidar:
-        lidar = _tensor(batch["lidar_points"], device).to(dtype)
-    if spec.use_radar:
-        radar = _tensor(batch["radar_points"], device).to(dtype)
-    return cams, lidar, radar
-
-
-def _model_kwargs(spec: DetectorSpec, batch: Dict, device: torch.device) -> Dict:
-    kwargs = {}
-    if spec.use_camera and "camera_cells" in batch:
-        kwargs["camera_cells"] = _tensor(batch["camera_cells"], device)
-    if spec.use_camera and "camera_point_idx" in batch:
-        # chunk plans of the fused splat (splat_mode: pallas, inference only)
-        kwargs["camera_chunks"] = tuple(_tensor(batch[k], device) for k in _PLANS_READ["chunks"])
-    if spec.use_camera and "camera_seg_idx" in batch:
-        # culled pair plans (splat_mode: culled): training and inference
-        kwargs["camera_pairs"] = tuple(_tensor(batch[k], device) for k in _PLANS_READ["pairs"])
-    return kwargs
 
 
 def make_eval_step(
@@ -271,46 +216,32 @@ def make_eval_step(
     GPU unless the caller names one) and into eval mode; it computes in the
     dtype of its parameters, and decode runs in f32.
 
-    `eval_path_decode=True` decodes at voxel 0.512 when
+    The decode is `ops.decode.centernet_decoder`'s: with
+    `eval_path_decode=True` at voxel 0.512 when
     `compat.eval_decode_voxel_0512` (quirk Q3, the standalone eval and
-    inference path); otherwise the voxel is the grid's own, per axis.
+    inference path); otherwise at the grid's own voxel, per axis.
 
     Of the geometric path's plans the step moves only those the lift reads
-    (`GeometricCameraBEV.reads`: B2's chunk plans without the frustum cells,
-    say), and a plan shared by the batch's rows, read-only, through its own
-    `DevicePlans` (``eval_step.plans``, with its ``hits``, ``misses`` and
-    ``entries``): once for as long as the host array lives."""
+    (`MultiModal3DDetector.reads`: B2's chunk plans without the frustum
+    cells, say), and a plan shared by the batch's rows, read-only, through
+    its own `DevicePlans` (``eval_step.plans``, with its ``hits``,
+    ``misses`` and ``entries``): once for as long as the host array lives."""
     device = resolve_device(device)
-    spec = model.spec
-    if eval_path_decode and compat.eval_decode_voxel_0512:
-        voxel_size = 0.512
-    else:
-        x_min, y_min, _, x_max, y_max, _ = spec.bev.pc_range
-        voxel_size = ((x_max - x_min) / spec.bev.bev_w, (y_max - y_min) / spec.bev.bev_h)
+    decode = centernet_decoder(model.spec, compat, eval_path_decode, max_detections)
     model.to(device).eval()
-    # the head's: the point MLPs keep f32 parameters under a cast model
-    dtype = next(model.det_head.parameters()).dtype
     plans = DevicePlans(device)
 
     @torch.inference_mode()
     def eval_step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.eval()  # a train step on the same model may have run since
         with span("eval.inputs") as inputs:
-            batch, nbytes, hits = _eval_on_device(model, batch, device, plans)
+            batch, nbytes, hits = _on_device(model, batch, device, plans)
             inputs.set(h2d_bytes=nbytes)
             if hits is not None:
                 inputs.set(plan_hits=hits)
         with span("eval.forward"):
-            preds = model(*_model_inputs(spec, batch, device, dtype), **_model_kwargs(spec, batch, device))
-            if not spec.head_is_centernet:
-                return preds
-            return decode_centernet_predictions(
-                preds,
-                max_detections=max_detections,
-                voxel_size=voxel_size,
-                pc_range=spec.bev.pc_range,
-                class_always_zero=compat.decode_class_always_zero,
-            )
+            preds = model(**model.forward_inputs(batch))
+            return decode(preds) if model.spec.head_is_centernet else preds
 
     eval_step.plans = plans
     return eval_step
@@ -459,22 +390,21 @@ class TrainStep:
         # the geometric branch's frustum plans are host-side calibration
         # constants: a flip or scale of the scene cannot move with them
         self.geometry_frozen = spec.use_camera and spec.bev.camera_to_bev == "geometric"
-        # the head's: the point MLPs keep f32 parameters under a cast model
-        self.dtype = next(model.det_head.parameters()).dtype
         self.params = [p for p in model.parameters() if p.requires_grad]
         optimizer.init(self.params)
         self.step = 0
 
     def augmented(self, batch: Dict) -> Dict:
-        """The batch with its cameras (normalized, in the working dtype),
-        points and GT boxes augmented on the device from the draws of
+        """The batch (its arrays on the device, as `__call__` moves them)
+        with its cameras (normalized, in the working dtype), points and GT
+        boxes augmented on the device from the draws of
         `ops.augment.step_generator(train_spec.seed, step)`; the batch as
         it is when augmentation is off."""
         if self.augment is None:
             return batch
-        spec, device = self.model.spec, self.device
-        cams, lidar, radar = _model_inputs(spec, batch, device, self.dtype)
-        boxes = _tensor(batch["gt_boxes"], device)
+        inputs = self.model.forward_inputs(batch)
+        cams, lidar, radar = (inputs.get(k) for k in ("camera_imgs", "lidar_points", "radar_points"))
+        boxes = batch["gt_boxes"]
         rows = boxes.shape[0]
         # the draws of the global batch (every rank's rows), this rank's taken
         total = rows if self.data is None else rows * self.data.n_data
@@ -505,28 +435,25 @@ class TrainStep:
 
     def forward(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The model's predictions in train mode (bf16 autocast under
-        ``mixed_precision``)."""
-        spec, device = self.model.spec, self.device
+        ``mixed_precision``) on the batch as `__call__` moves it."""
         self.model.train()
         self.view_parts(batch)
-        autocast = (torch.autocast(device.type, dtype=torch.bfloat16)
+        autocast = (torch.autocast(self.device.type, dtype=torch.bfloat16)
                     if self.train_spec.mixed_precision else contextlib.nullcontext())
         with autocast:
-            return self.model(*_model_inputs(spec, batch, device, self.dtype),
-                              **_model_kwargs(spec, batch, device))
+            return self.model(**self.model.forward_inputs(batch))
 
     def loss(self, preds: Dict[str, torch.Tensor], batch: Dict) -> Dict[str, torch.Tensor]:
-        """The loss dict, with targets built on the device: the CenterNet
+        """The loss dict, with targets built on the device from the batch's
+        ground truth (on the device, as `__call__` moves it): the CenterNet
         loss, or for the MLP head `detection_loss` on the first valid object."""
         spec = self.model.spec
         if not spec.head_is_centernet:
-            targets = prepare_mlp_targets(_tensor(batch["gt_boxes"], self.device),
-                                          _tensor(batch["gt_labels"], self.device),
-                                          num_classes=spec.num_classes)
+            targets = prepare_mlp_targets(batch["gt_boxes"], batch["gt_labels"], num_classes=spec.num_classes)
             return detection_loss(preds, targets, group=self.group)
         targets = prepare_centernet_targets(
-            _tensor(batch["gt_boxes"], self.device),
-            _tensor(batch["gt_labels"], self.device),
+            batch["gt_boxes"],
+            batch["gt_labels"],
             pc_range=spec.bev.pc_range,
             bev_size=(spec.bev.bev_h, spec.bev.bev_w),
             num_classes=spec.num_classes,
@@ -573,8 +500,9 @@ class TrainStep:
     def __call__(self, batch: Dict) -> Dict[str, torch.Tensor]:
         if self.data is not None:
             batch = self.data.local_rows(batch)
+        self.model.train()  # the plans it reads in training
         with span("train.inputs") as inputs:
-            batch, nbytes = _on_device(self.model.spec, batch, self.device, targets=True)
+            batch, nbytes, _ = _on_device(self.model, batch, self.device, targets=True)
             inputs.set(h2d_bytes=nbytes)
         timed = self.device.type == "cuda"
         with span("train.forward", device=timed):
@@ -775,8 +703,6 @@ class Trainer:
             if batch is None:
                 break
             t0 = time.perf_counter()
-            # the fused splat's chunk plans are for inference only
-            batch = {k: v for k, v in batch.items() if k not in _PLANS_READ["chunks"]}
             losses = self.train_step(batch)
             loss = float(losses["total_loss"])
             step_s = time.perf_counter() - t0
@@ -796,8 +722,8 @@ class Trainer:
     def evaluate(self, loader, score_thresh: float = 0.0, post_process=None) -> Dict:
         """Validation pass: decode and metrics (the training-eval decode with
         score_thresh 0.0, ref: train_detect.py:500-536). `post_process`, a
-        `PostProcessSpec` (``compat.ignore_post_processing_config`` off),
-        applies its score threshold, BEV NMS and cap instead. The MLP head
+        `PostProcessSpec` (`PostProcessSpec.resolve`'s), applies its score
+        threshold and, where it has them, BEV NMS and cap instead. The MLP head
         gives one detection per sample: the softmax's most probable class,
         its probability and the predicted box (`post_process` unused, as in
         the JAX package)."""
@@ -806,6 +732,7 @@ class Trainer:
 
         if self.eval_step is None:
             raise RuntimeError("call init_state first")
+        pp = post_process or PostProcessSpec(score_thresh, None, None)
         predictions, ground_truths = [], []
         data = self.data
         for batch in loader:
@@ -827,13 +754,9 @@ class Trainer:
                 decoded = {k: v[:n] for k, v in decoded.items()}
             if not self.spec.head_is_centernet:
                 dets = mlp_detections(decoded)
-            elif post_process is not None:
-                dets = decode_to_host(
-                    decoded, score_thresh=post_process.score_threshold,
-                    nms_thresh=post_process.nms_threshold, max_detections=post_process.max_detections,
-                )
             else:
-                dets = decode_to_host(decoded, score_thresh=score_thresh)
+                dets = decode_to_host(decoded, score_thresh=pp.score_threshold, nms_thresh=pp.nms_threshold,
+                                      max_detections=pp.max_detections)
             predictions.extend(dets)
             for bi in range(n):
                 ground_truths.append({"boxes": np.asarray(batch["gt_boxes"][bi]),

@@ -182,7 +182,7 @@ def main(config_path: Optional[str] = None, device=None, config: Optional[Dict] 
     log_dir.mkdir(parents=True, exist_ok=True)
     log_file = str(log_dir / "train_log.jsonl") if is_main else None
     keep_last = ((config.get("train", {}) or {}).get("checkpoint", {}) or {}).get("keep_last", 0)
-    pp = None if compat.ignore_post_processing_config else PostProcessSpec.from_config(config, "val")
+    pp = PostProcessSpec.resolve(config, compat, "val", 0.0)
     # debug.profile (dead in the reference, configs/base.yaml:643): trace
     # the first epoch this run trains
     profile = (config.get("debug", {}) or {}).get("profile", False)

@@ -1463,9 +1463,10 @@ def train_breakdown(step, batch, reps: int = 3) -> dict:
     for _ in range(reps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
         ev[0].record()
-        preds = step.forward(batch)
+        moved, _, _ = train_loop._on_device(step.model, batch, step.device, targets=True)
+        preds = step.forward(moved)
         ev[1].record()
-        losses = step.loss(preds, batch)
+        losses = step.loss(preds, moved)
         ev[2].record()
         grads = step.gradients(losses["total_loss"])
         ev[3].record()
@@ -3552,8 +3553,7 @@ def view_eval(config, group, rank: int, device) -> dict:
         model.shard_views(group.view_shard())
         batch = view_eval_batch(spec, np.random.RandomState(18), 2, camera_plan_inputs(spec) if name == "geometric" else None)
         step = make_eval_step(model, compat, device=device)
-        args = (train_loop._model_inputs(spec, batch, torch.device(device), torch.float32),
-                train_loop._model_kwargs(spec, batch, torch.device(device)))
+        inputs = model.forward_inputs(train_loop._on_device(model, batch, torch.device(device))[0])
         step(batch)  # warm-up
         torch.cuda.synchronize()
         counters = (pf.pointnet_fused, bp.bev_pool_weighted_rows)
@@ -3563,14 +3563,14 @@ def view_eval(config, group, rank: int, device) -> dict:
         torch.cuda.synchronize()
         res = {"launches": {k.__name__: k.launches for k in counters}, "head_on_rows": model.head_on_rows()}
         with torch.inference_mode():
-            maps = model(*args[0], **args[1])
+            maps = model(**inputs)
         res["step_ms"] = timed_steps({"eval": step}, batch)["eval"]
         if res["launches"] != {"pointnet_fused": 2, "bev_pool_weighted_rows": int(name == "geometric")}:
             raise AssertionError(f"17b {name}: launches {res['launches']} in one eval step")
         if rank == 0:
             want = make_eval_step(one, compat, device=device)(batch)
             with torch.inference_mode():
-                want_maps = one(*args[0], **args[1])
+                want_maps = one(**inputs)
             res["maps"] = output_errors({k: v.float().cpu() for k, v in maps.items()},
                                         {k: v.float().cpu() for k, v in want_maps.items()}, f"17b {name} maps")
             res["decoded"] = output_errors({k: v.float().cpu() for k, v in got.items()},

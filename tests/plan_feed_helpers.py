@@ -8,7 +8,8 @@ import torch
 from bevfusion_multimodal_3d_object_detection_tpu_torch import config as port_config
 from bevfusion_multimodal_3d_object_detection_tpu_torch.data import dataset as port_dataset
 from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
-from bevfusion_multimodal_3d_object_detection_tpu_torch.train import loop as port_loop
+from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import decode as port_decode
+from bevfusion_multimodal_3d_object_detection_tpu_torch.ops import preprocess as port_preprocess
 
 NUM_CELLS = 100  # the 10x10 grid
 CHUNKS = tuple(f"camera_{k}" for k in port_dataset.CHUNK_KEYS)
@@ -63,11 +64,15 @@ def parent_step(m: MultiModal3DDetector, batch, device) -> dict:
     device = torch.device(device)
     s = m.spec
     x_min, y_min, _, x_max, y_max, _ = s.bev.pc_range
+    t = {k: torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in batch.items()
+         if isinstance(v, np.ndarray)}
+    kwargs = {"camera_cells": t["camera_cells"]}
+    if CHUNKS[0] in t:
+        kwargs["camera_chunks"] = tuple(t[k] for k in CHUNKS)
     with torch.inference_mode():
-        batch, _ = port_loop._on_device(s, batch, device)
-        preds = m(*port_loop._model_inputs(s, batch, device, torch.float32),
-                  **port_loop._model_kwargs(s, batch, device))
-        return port_loop.decode_centernet_predictions(
+        preds = m(port_preprocess.normalize_images(t["camera_imgs"], size=s.camera.image_size),
+                  t["lidar_points"], t["radar_points"], **kwargs)
+        return port_decode.decode_centernet_predictions(
             preds, max_detections=100, voxel_size=((x_max - x_min) / s.bev.bev_w, (y_max - y_min) / s.bev.bev_h),
             pc_range=s.bev.pc_range, class_always_zero=port_config.CompatFlags().decode_class_always_zero)
 

@@ -181,7 +181,8 @@ def test_augmented_step_is_the_plain_step_on_the_augmented_batch(mode):
     model_a, step_a = _aug_step(spec, augment=port_config.AugmentSpec(noise_std=0.05))
     model_b, step_b = _aug_step(spec, skip=True)
     assert step_a.geometry_frozen == (mode == "geometric") and step_b.augment is None
-    augmented = step_a.augmented(batch)
+    # the step's parts take the batch as its call moves it: on the device
+    augmented = step_a.augmented({k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in batch.items()})
     if mode == "geometric":
         assert torch.equal(augmented["lidar_points"], torch.from_numpy(batch["lidar_points"]))
     else:

@@ -199,8 +199,9 @@ def test_only_the_plans_the_lift_reads_are_copied(mode, chunks, read):
     if not chunks:
         batch = {k: v for k, v in batch.items() if k not in pf.CHUNKS}
     step = _step(m)
-    out, nbytes, hits = port_loop._eval_on_device(m, batch, CPU, port_loop.DevicePlans(CPU))
-    assert [k for k in port_loop._PLAN_KEYS if k in out] == list(read)
+    assert m.reads(batch) == pf.INPUTS + tuple(read)  # in eval mode, as `_step` left it
+    out, nbytes, hits = port_loop._on_device(m, batch, CPU, port_loop.DevicePlans(CPU))
+    assert [k for k in port_dataset.ALL_PLAN_KEYS if k in out] == list(read)
     assert all(isinstance(out[k], torch.Tensor) for k in read)
     # the chunk plans are shared (one sample's rows copied), the cells not
     copied = sum(batch[k].nbytes // (2 if k in pf.CHUNKS else 1) for k in read)

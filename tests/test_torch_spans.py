@@ -10,11 +10,11 @@
   reads, of the plans B2's chunk plans and not the frustum cells, which its
   lift does not read; ``plan_hits`` where it reads plans) then
   ``eval.forward``, its outputs bit-identical to the forward fed the whole
-  numpy batch;
+  batch, every plan included;
 - the train step: ``train.inputs``, ``train.forward``, ``train.backward`` and
   ``train.optimizer`` a step, and losses and parameters bit-identical to the
-  step's parts run in turn on the numpy batch (as the step ran before it
-  moved its inputs first), with and without augmentation.
+  step's parts run in turn on the batch's arrays as tensors, with and
+  without augmentation.
 """
 
 import copy
@@ -27,7 +27,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from bevfusion_multimodal_3d_object_detection_tpu_torch import config as port_config
+from bevfusion_multimodal_3d_object_detection_tpu_torch.data.dataset import CHUNK_KEYS
 from bevfusion_multimodal_3d_object_detection_tpu_torch.models.detector import MultiModal3DDetector
+from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.decode import centernet_decoder
+from bevfusion_multimodal_3d_object_detection_tpu_torch.ops.preprocess import normalize_images
 from bevfusion_multimodal_3d_object_detection_tpu_torch.serving import InferenceServer
 from bevfusion_multimodal_3d_object_detection_tpu_torch.train import loop as port_loop
 from bevfusion_multimodal_3d_object_detection_tpu_torch.utils.profiling import recorded_spans, span
@@ -48,6 +51,11 @@ def _spans(name):
 
 def _model(spec, seed=3):
     return MultiModal3DDetector(spec).init_weights(torch.Generator().manual_seed(seed))
+
+
+def _tensors(batch):
+    """The batch with its numpy arrays as CPU tensors."""
+    return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in batch.items()}
 
 
 @pytest.fixture(scope="module")
@@ -113,19 +121,20 @@ def test_eval_step_moves_its_inputs_first(mode):
     # the batch's plans are plain stacks: copied, none from the device cache
     hits = {"plan_hits": 0.0} if mode == "geometric" else {}
     assert inputs[0]["attrs"] == {"h2d_bytes": sum(batch[k].nbytes for k in read), **hits}
-    with torch.inference_mode():  # the forward fed the numpy batch, as the step was before
-        preds = model(*port_loop._model_inputs(spec, batch, torch.device("cpu"), torch.float32),
-                      **port_loop._model_kwargs(spec, batch, torch.device("cpu")))
-    want = port_loop.decode_centernet_predictions(preds, max_detections=100, voxel_size=(
-        (spec.bev.pc_range[3] - spec.bev.pc_range[0]) / spec.bev.bev_w,
-        (spec.bev.pc_range[4] - spec.bev.pc_range[1]) / spec.bev.bev_h), pc_range=spec.bev.pc_range,
-        class_always_zero=port_config.CompatFlags().decode_class_always_zero)
+    t = _tensors(batch)
+    plans = {}
+    if mode == "geometric":  # every plan: the lift picks the chunk plans
+        plans = {"camera_cells": t["camera_cells"], "camera_chunks": tuple(t[f"camera_{k}"] for k in CHUNK_KEYS)}
+    with torch.inference_mode():
+        preds = model(normalize_images(t["camera_imgs"], size=spec.camera.image_size), t["lidar_points"],
+                      t["radar_points"], **plans)
+    want = centernet_decoder(spec, port_config.CompatFlags(), eval_path=False)(preds)
     assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in got)
 
 
-def _old_call(step, batch):
-    """`TrainStep.__call__` as it was before it moved its inputs first."""
-    batch = step.augmented(batch)
+def _parts_in_turn(step, batch):
+    """`TrainStep.__call__`'s parts run in turn, on the batch as tensors."""
+    batch = step.augmented(_tensors(batch))
     losses = step.loss(step.forward(batch), batch)
     return step.update(losses, step.gradients(losses["total_loss"]))
 
@@ -144,7 +153,7 @@ def test_train_step_spans_and_bit_identical_losses(augment):
     new, old = steps
     with _profiled():
         got = [new(copy.copy(b)) for b in batches]
-    want = [_old_call(old, copy.copy(b)) for b in batches]
+    want = [_parts_in_turn(old, b) for b in batches]
     for g, w in zip(got, want):
         assert g.keys() == w.keys() and all(torch.equal(g[k], w[k]) for k in g)
     for p, q in zip(new.model.parameters(), old.model.parameters()):
